@@ -32,7 +32,7 @@ def main():
 
     import numpy as np
 
-    from sequence_alignment_tools_tpu.parallel.multihost import (
+    from sequence_alignment_tools.parallel.multihost import (
         init_distributed,
         make_host_chip_mesh,
         shard_codes_2d,

@@ -9,7 +9,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from sequence_alignment_tools_tpu.apps.allvall import (
+from sequence_alignment_tools.apps.allvall import (
     allvall_main, dump_main, merge_main, read_bitmap, tobm_main,
     write_bitmap,
 )

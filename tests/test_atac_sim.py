@@ -6,9 +6,9 @@ import subprocess
 
 import pytest
 
-from sequence_alignment_tools_tpu.apps.atac_seq import parse_args, run
-from sequence_alignment_tools_tpu.apps.genome_simulation import Drand48
-from sequence_alignment_tools_tpu.apps.solid_simulation import tocs
+from sequence_alignment_tools.apps.atac_seq import parse_args, run
+from sequence_alignment_tools.apps.genome_simulation import Drand48
+from sequence_alignment_tools.apps.solid_simulation import tocs
 
 
 @pytest.fixture(scope="module")
@@ -64,7 +64,7 @@ def test_atac_parity(oracle, atac_env, cfg):
 
 
 def test_genome_simulation_deterministic(tmp_path):
-    from sequence_alignment_tools_tpu.apps.genome_simulation import main
+    from sequence_alignment_tools.apps.genome_simulation import main
 
     a, b = tmp_path / "a.sqn", tmp_path / "b.sqn"
     main(["-l", "1000", "-s", "42", "-o", str(a)])
@@ -91,7 +91,7 @@ def test_solid_colorspace_encoding():
 
 
 def test_solid_simulation_deterministic(nr_fasta_mod, tmp_path):
-    from sequence_alignment_tools_tpu.apps.solid_simulation import main
+    from sequence_alignment_tools.apps.solid_simulation import main
 
     a, b = tmp_path / "a.csfasta", tmp_path / "b.csfasta"
     for p in (a, b):

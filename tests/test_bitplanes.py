@@ -1,7 +1,7 @@
 """Wide-alphabet IUPAC bit-plane filter mode (round 5).
 
-The -w wildcard scan's Mosaic filter is bound by one compare+copy pass
-per live alphabet class (~14 for the 15-symbol IUPAC alphabet).  The
+The -w wildcard scan's microhit filter reads one indicator plane per
+live alphabet class (~14 for the 15-symbol IUPAC alphabet).  The
 bit-plane mode (``ConvScanner._bitplane_mode``) recodes the resident
 text to 4-bit base masks and scans 4 bit planes instead — a SUPERSET
 filter (margins count base-set intersections) resolved by the exact
@@ -23,10 +23,10 @@ import os
 import numpy as np
 import pytest
 
-from sequence_alignment_tools_tpu.io.database import SeqDB
-from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-from sequence_alignment_tools_tpu.ops.conv_scan import ConvScanner
-from sequence_alignment_tools_tpu.ops.tables import build_tables
+from sequence_alignment_tools.io.database import SeqDB
+from sequence_alignment_tools.io.patterns import build_pattern_set
+from sequence_alignment_tools.ops.conv_scan import ConvScanner
+from sequence_alignment_tools.ops.tables import build_tables
 
 
 @pytest.fixture(scope="module")
@@ -45,14 +45,14 @@ def wide_db(tmp_path_factory):
     return SeqDB.from_fasta(str(path)), seq
 
 
-def _scan(tables, codes, interpret, bitplanes=True):
+def _scan(tables, codes, fused, bitplanes=True):
     old = os.environ.get("SAT_BITPLANES")
     os.environ["SAT_BITPLANES"] = "1" if bitplanes else "0"
     try:
-        sc = ConvScanner(tables, k=0, use_pallas=interpret or None)
-        sc.pallas_interpret = interpret
-        if interpret:
-            sc.use_pallas = True
+        sc = ConvScanner(tables, k=0, use_fused=fused or None)
+        sc.force_device = fused
+        if fused:
+            sc.use_fused = True
         sc.use_host = False
         out = sorted(sc.scan(codes))
         return out, sc
@@ -73,12 +73,12 @@ def test_bitplane_parity_wide_wc(wide_db):
     ps = build_pattern_set(pats, rev_comp=True)
     t = build_tables(ps, db, wc=True, textn=False)
     codes = np.asarray(db.codes)
-    got, sc = _scan(t, codes, interpret=True, bitplanes=True)
+    got, sc = _scan(t, codes, fused=True, bitplanes=True)
     assert sc._bitplane_cc not in (False, None), \
         "bit-plane mode did not engage for the wide -w config"
-    want, _ = _scan(t, codes, interpret=False, bitplanes=True)
+    want, _ = _scan(t, codes, fused=False, bitplanes=True)
     assert got == want
-    off, sc_off = _scan(t, codes, interpret=True, bitplanes=False)
+    off, sc_off = _scan(t, codes, fused=True, bitplanes=False)
     assert sc_off._bitplane_cc is None
     assert off == want
 
@@ -116,13 +116,13 @@ def test_bitplane_dead_code_mask_alias():
     ps = build_pattern_set(kpats, rev_comp=False)
     t = build_tables(ps, db, wc=True, textn=False)
     codes = np.asarray(db.codes)
-    got, sc = _scan(t, codes, interpret=True, bitplanes=True)
+    got, sc = _scan(t, codes, fused=True, bitplanes=True)
     assert sc._bitplane_cc not in (False, None), \
         "mode declined: the alias case is untested"
     acc = np.asarray(t.match)
     ucode = list(db.table).index(ord("U"))
     assert not acc[:, :, ucode].any(), "U is live: alias case untested"
-    want, _ = _scan(t, codes, interpret=False, bitplanes=True)
+    want, _ = _scan(t, codes, fused=False, bitplanes=True)
     assert got == want
 
 
@@ -138,14 +138,9 @@ def test_bitplane_declines_plain_dna():
     db = SeqDB.from_fasta(path)
     ps = build_pattern_set([seq[10:25], seq[100:118]], rev_comp=True)
     t = build_tables(ps, db, wc=False, textn=False)
-    # plain DNA now takes the SEAM 2-bit encode (test_exactcode.py);
-    # with it off, the class planes remain
-    os.environ["SAT_SEAMCODE"] = "0"
-    try:
-        sc = ConvScanner(t, k=0)
-        assert sc._bitplane_mode() is None  # < 6 live classes
-    finally:
-        del os.environ["SAT_SEAMCODE"]
+    # plain DNA keeps the class planes
+    sc = ConvScanner(t, k=0)
+    assert sc._bitplane_mode() is None  # < 6 live classes
     ps2 = build_pattern_set([seq[10:25]], rev_comp=True)
     t2 = build_tables(ps2, db, wc=True, textn=False)
     sc2 = ConvScanner(t2, k=1)

@@ -6,9 +6,9 @@ true hits (substitutions, indels, near-edge windows) included."""
 import numpy as np
 import pytest
 
-from sequence_alignment_tools_tpu.io.database import SeqDB
-from sequence_alignment_tools_tpu.io.patterns import PatternSet
-from sequence_alignment_tools_tpu.models.primer_match import PrimerMatchModel
+from sequence_alignment_tools.io.database import SeqDB
+from sequence_alignment_tools.io.patterns import PatternSet
+from sequence_alignment_tools.models.primer_match import PrimerMatchModel
 
 
 def _mutate(rng, pat, op):

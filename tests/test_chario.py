@@ -31,7 +31,7 @@ def _run_mine(path):
     import contextlib
     import io
 
-    from sequence_alignment_tools_tpu.apps.chario import main
+    from sequence_alignment_tools.apps.chario import main
 
     out, err = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):

@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sequence_alignment_tools_tpu.ops.compact import compact_mask
+from sequence_alignment_tools.ops.compact import compact_mask
 
 
 def _check(mask: np.ndarray, cap: int, chunk):

@@ -7,8 +7,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from sequence_alignment_tools_tpu.io.compress import compress, load_db, pack_sqz, unpack_sqz
-from sequence_alignment_tools_tpu.io.database import SeqDB
+from sequence_alignment_tools.io.compress import compress, load_db, pack_sqz, unpack_sqz
+from sequence_alignment_tools.io.database import SeqDB
 
 
 def _run_ref_compress(oracle, fasta, *args):
@@ -115,7 +115,7 @@ def test_tableonly_addrc_parity(oracle, tmp_path):
     _run_ref_compress(oracle, ref_fa, "-T", "true", "-R", "true")
     mine_fa = str(tmp_path / "rcm.fasta")
     shutil.copy(src, mine_fa)
-    from sequence_alignment_tools_tpu.apps.compress_seq import main
+    from sequence_alignment_tools.apps.compress_seq import main
 
     assert main(["-i", mine_fa, "-T", "true", "-R", "true"]) == 0
     want = open(ref_fa + ".tbl", "rb").read()
@@ -132,7 +132,7 @@ def test_tableonly_parity(oracle, syn_fasta, tmp_path):
     _run_ref_compress(oracle, ref_fa, "-T", "true", "-G", "true")
     mine_fa = str(tmp_path / "m3.fasta")
     shutil.copy(syn_fasta, mine_fa)
-    from sequence_alignment_tools_tpu.apps.compress_seq import main
+    from sequence_alignment_tools.apps.compress_seq import main
 
     assert main(["-i", mine_fa, "-T", "true", "-G", "true"]) == 0
     assert open(mine_fa + ".tbl", "rb").read() == \

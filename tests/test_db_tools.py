@@ -7,13 +7,13 @@ import subprocess
 
 import pytest
 
-from sequence_alignment_tools_tpu.apps.extract_seq import (
+from sequence_alignment_tools.apps.extract_seq import (
     parse_args as ex_args, run as ex_run,
 )
-from sequence_alignment_tools_tpu.apps.nrdb import (
+from sequence_alignment_tools.apps.nrdb import (
     parse_args as nr_args, run as nr_run,
 )
-from sequence_alignment_tools_tpu.apps.tandem_match import (
+from sequence_alignment_tools.apps.tandem_match import (
     parse_args as tm_args, run as tm_run,
 )
 

@@ -2,8 +2,8 @@
 
 Wide-alphabet EXACT scans (the ``peptide_scan`` regime: ~20 live amino
 acid classes, peptide_scan.cc driving the shared scan stack of
-primer_match.cc:1114) pay one compare+copy pass per live class in the
-Mosaic filter — the kernel's measured bound (README roofline).  The
+primer_match.cc:1114) pay one indicator plane per live class in the
+microhit filter.  The
 exact class-encode mode (``ConvScanner._exact_encode_cc``) groups live
 codes into equivalence classes by accept-column equality, assigns each
 a B-bit id (ids 1.., id 0 = dead/EOS), and scans B = ceil(log2(ncls+1))
@@ -28,10 +28,10 @@ import os
 import numpy as np
 import pytest
 
-from sequence_alignment_tools_tpu.io.database import SeqDB
-from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-from sequence_alignment_tools_tpu.ops.conv_scan import ConvScanner
-from sequence_alignment_tools_tpu.ops.tables import build_tables
+from sequence_alignment_tools.io.database import SeqDB
+from sequence_alignment_tools.io.patterns import build_pattern_set
+from sequence_alignment_tools.ops.conv_scan import ConvScanner
+from sequence_alignment_tools.ops.tables import build_tables
 
 AA = "ACDEFGHIKLMNPQRSTVWY"
 
@@ -52,14 +52,14 @@ def aa_db(tmp_path_factory):
     return SeqDB.from_fasta(str(path)), seq
 
 
-def _scan(tables, codes, interpret, mode=True):
+def _scan(tables, codes, fused, mode=True):
     old = os.environ.get("SAT_EXACTCODE")
     os.environ["SAT_EXACTCODE"] = "1" if mode else "0"
     try:
-        sc = ConvScanner(tables, k=0, use_pallas=interpret or None)
-        sc.pallas_interpret = interpret
-        if interpret:
-            sc.use_pallas = True
+        sc = ConvScanner(tables, k=0, use_fused=fused or None)
+        sc.force_device = fused
+        if fused:
+            sc.use_fused = True
         sc.use_host = False
         return sorted(sc.scan(codes)), sc
     finally:
@@ -79,13 +79,13 @@ def test_exactcode_parity_aa(aa_db):
     ps = build_pattern_set(pats)
     t = build_tables(ps, db, wc=False, textn=False)
     codes = np.asarray(db.codes)
-    got, sc = _scan(t, codes, interpret=True, mode=True)
+    got, sc = _scan(t, codes, fused=True, mode=True)
     bm = sc._bitplane_cc
     assert bm not in (False, None), "exact class-encode did not engage"
     assert bm["alpha_r"] == 32 and len(bm["classes"]) == 5
-    want, _ = _scan(t, codes, interpret=False, mode=False)
+    want, _ = _scan(t, codes, fused=False, mode=False)
     assert got == want and want
-    off, sc_off = _scan(t, codes, interpret=True, mode=False)
+    off, sc_off = _scan(t, codes, fused=True, mode=False)
     assert sc_off._bitplane_cc is None
     assert off == want
 
@@ -97,9 +97,9 @@ def test_exactcode_sharded_parity(aa_db):
     exact config, with shard-boundary-straddling patterns planted."""
     import jax
 
-    from sequence_alignment_tools_tpu.parallel.shard import (
+    from sequence_alignment_tools.parallel.shard import (
         make_mesh,
-        sharded_pallas_scan_hits,
+        sharded_scan_hits,
     )
 
     db, seq = aa_db
@@ -113,14 +113,13 @@ def test_exactcode_sharded_parity(aa_db):
             pats.append(sub)
     ps = build_pattern_set(pats)
     t = build_tables(ps, db, wc=False, textn=False)
-    sc = ConvScanner(t, k=0, use_pallas=True)
-    sc.pallas_interpret = True
+    sc = ConvScanner(t, k=0, use_fused=True)
+    sc.force_device = True
     sc.use_host = False
     want = sorted(sc.scan(codes))
     assert want and sc._bitplane_cc not in (False, None)
     mesh = make_mesh(jax.devices()[:8])
-    got = sorted(sharded_pallas_scan_hits(sc, codes, mesh,
-                                          interpret=True))
+    got = sorted(sharded_scan_hits(sc, codes, mesh))
     assert got == want
 
 
@@ -130,7 +129,7 @@ def test_exactcode_sharded_stream_parity(aa_db):
     block-for-block parity with the single-chip scan on AA exact."""
     import jax
 
-    from sequence_alignment_tools_tpu.parallel.shard import (
+    from sequence_alignment_tools.parallel.shard import (
         make_mesh,
         sharded_scan_stream,
     )
@@ -141,17 +140,17 @@ def test_exactcode_sharded_stream_parity(aa_db):
     ps = build_pattern_set(pats)
     t = build_tables(ps, db, wc=False, textn=False)
     blocks = [codes[:45_000], codes[45_000:]]
-    sc = ConvScanner(t, k=0, use_pallas=True)
-    sc.pallas_interpret = True
+    sc = ConvScanner(t, k=0, use_fused=True)
+    sc.force_device = True
     sc.use_host = False
     want = {i: sorted(sc.scan(b)) for i, b in enumerate(blocks)}
     assert any(want.values())
     mesh = make_mesh(jax.devices()[:8])
-    sc2 = ConvScanner(t, k=0, use_pallas=True)
-    sc2.pallas_interpret = True
+    sc2 = ConvScanner(t, k=0, use_fused=True)
+    sc2.force_device = True
     sc2.use_host = False
     got = {i: sorted(h) for i, h in
-           sharded_scan_stream(sc2, iter(blocks), mesh, interpret=True)}
+           sharded_scan_stream(sc2, iter(blocks), mesh)}
     assert got == want
     assert sc2._bitplane_cc not in (False, None)
 
@@ -161,9 +160,9 @@ def test_wide_bitplane_sharded_parity():
     (it previously declined under a mesh to the class planes)."""
     import jax
 
-    from sequence_alignment_tools_tpu.parallel.shard import (
+    from sequence_alignment_tools.parallel.shard import (
         make_mesh,
-        sharded_pallas_scan_hits,
+        sharded_scan_hits,
     )
 
     rng = np.random.default_rng(7)
@@ -184,108 +183,14 @@ def test_wide_bitplane_sharded_parity():
     ps = build_pattern_set(pats, rev_comp=True)
     t = build_tables(ps, db, wc=True, textn=False)
     codes = np.asarray(db.codes)
-    sc = ConvScanner(t, k=0, use_pallas=True)
-    sc.pallas_interpret = True
+    sc = ConvScanner(t, k=0, use_fused=True)
+    sc.force_device = True
     sc.use_host = False
     want = sorted(sc.scan(codes))
     assert want and sc._bitplane_cc not in (False, None)
     mesh = make_mesh(jax.devices()[:8])
-    got = sorted(sharded_pallas_scan_hits(sc, codes, mesh,
-                                          interpret=True))
+    got = sorted(sharded_scan_hits(sc, codes, mesh))
     assert got == want
-
-
-def test_seam_2bit_dna_parity():
-    """SEAM mode (the DNA exact regime): 4 live singleton classes in 2
-    bit planes with NO dead id — EOS entry separators alias class id 0
-    through the filter AND the in-pipeline rescore, and the _emit veto
-    re-verifies hits against the original codes.  Pinned: a pattern
-    built from entry0's tail + entry1's head (a would-be cross-seam
-    match) must NOT hit; parity with the class planes; SAT_SEAMCODE=0
-    ablation; the whole-scan and streamed forms."""
-    rng = np.random.default_rng(1)
-    entries = ["".join("ACGT"[i]
-                       for i in rng.integers(0, 4, size=30_000))
-               for _ in range(4)]
-    seq = "".join(entries)
-    pats = [seq[i : i + 13] for i in range(500, 115_000, 9_500)]
-    pats.append(entries[0][-6:] + entries[1][:7])  # seam straddler
-    import tempfile
-
-    with tempfile.NamedTemporaryFile("w", suffix=".fasta",
-                                     delete=False) as f:
-        for e, s in enumerate(entries):
-            f.write(">e%d\n%s\n" % (e, s))
-        path = f.name
-    db = SeqDB.from_fasta(path)
-    ps = build_pattern_set(pats, rev_comp=True)
-    t = build_tables(ps, db, wc=False, textn=False)
-    codes = np.asarray(db.codes)
-
-    def scan(interpret, env):
-        old = os.environ.get("SAT_SEAMCODE")
-        os.environ["SAT_SEAMCODE"] = env
-        try:
-            sc = ConvScanner(t, k=0, use_pallas=interpret or None)
-            sc.pallas_interpret = interpret
-            if interpret:
-                sc.use_pallas = True
-            sc.use_host = False
-            return sorted(sc.scan(codes)), sc
-        finally:
-            if old is None:
-                os.environ.pop("SAT_SEAMCODE", None)
-            else:
-                os.environ["SAT_SEAMCODE"] = old
-
-    got, sc = scan(True, "1")
-    bm = sc._bitplane_cc
-    assert isinstance(bm, dict) and bm["seam"] and bm["alpha_r"] == 4
-    assert len(bm["classes"]) == 2  # the whole point: 2 build passes
-    want, _ = scan(False, "0")
-    assert got == want and want
-    straddler = len(pats) - 1  # forward orientation pid
-    assert not any(p == straddler for _, p, _ in want)
-    off, sc_off = scan(True, "0")
-    assert sc_off._bitplane_cc is None and off == want
-
-    # streamed form (group-fetch decode path carries the veto too)
-    os.environ["SAT_SEAMCODE"] = "1"
-    try:
-        sc3 = ConvScanner(t, k=0, use_pallas=True)
-        sc3.pallas_interpret = True
-        sc3.use_host = False
-        blocks = [codes[:60_000], codes[60_000:]]
-        per = {i: sorted(sc3.scan(b)) for i, b in enumerate(blocks)}
-        sc4 = ConvScanner(t, k=0, use_pallas=True)
-        sc4.pallas_interpret = True
-        sc4.use_host = False
-        got4 = {i: sorted(h) for i, h in sc4.scan_stream(iter(blocks))}
-        assert got4 == per
-        assert isinstance(sc4._bitplane_cc, dict) \
-            and sc4._bitplane_cc["seam"]
-
-        # N-flooded text: the density probe declines seam mode (veto
-        # cost), output unchanged on the class planes
-        seqN = list(seq)
-        for i in range(0, len(seqN), 7):
-            seqN[i] = "N"
-        with tempfile.NamedTemporaryFile("w", suffix=".fasta",
-                                         delete=False) as f:
-            f.write(">n\n" + "".join(seqN) + "\n")
-            pn = f.name
-        dbn = SeqDB.from_fasta(pn)
-        tn = build_tables(ps, dbn, wc=False, textn=False)
-        scn = ConvScanner(tn, k=0, use_pallas=True)
-        scn.pallas_interpret = True
-        scn.use_host = False
-        outn = sorted(scn.scan(np.asarray(dbn.codes)))
-        assert scn._seam_disabled and scn._bitplane_cc is None
-        scn2 = ConvScanner(tn, k=0, use_pallas=False)
-        scn2.use_host = False
-        assert outn == sorted(scn2.scan(np.asarray(dbn.codes)))
-    finally:
-        os.environ.pop("SAT_SEAMCODE", None)
 
 
 def test_exactcode_declines(aa_db):
@@ -295,8 +200,7 @@ def test_exactcode_declines(aa_db):
     t = build_tables(ps, db, wc=False, textn=False)
     sc = ConvScanner(t, k=1)
     assert sc._bitplane_mode() is None
-    # plain DNA takes the SEAM 2-bit encode; with it off (< 6 live
-    # classes) the class planes remain
+    # plain DNA (< 6 live classes): the class planes remain
     rng = np.random.default_rng(5)
     dna = "".join("ACGT"[i] for i in rng.integers(0, 4, size=4096))
     import tempfile
@@ -309,12 +213,4 @@ def test_exactcode_declines(aa_db):
     dps = build_pattern_set([dna[10:25], dna[40:58]], rev_comp=True)
     dt = build_tables(dps, ddb, wc=False, textn=False)
     dsc = ConvScanner(dt, k=0)
-    assert dsc._bitplane_mode() is None  # seam is opt-in (refuted
-    # on-chip for the DNA regime: not build-bound at 3 passes)
-    os.environ["SAT_SEAMCODE"] = "1"
-    try:
-        dsc2 = ConvScanner(dt, k=0)
-        bm = dsc2._bitplane_mode()
-        assert bm is not None and bm["seam"] and bm["alpha_r"] == 4
-    finally:
-        del os.environ["SAT_SEAMCODE"]
+    assert dsc._bitplane_mode() is None

@@ -1,15 +1,18 @@
 """Fused gated k>0 pipeline (seed scan + extension gate on device) vs the
 host engine path — output must be IDENTICAL: the gate is a superset filter
 (ops/gate.py docstring proof) and the exact native extension decides, so the
-engines' hit streams cannot differ.  Interpret mode on CPU; the compiled
-kernel is exercised on hardware by bench.py."""
+engines' hit streams cannot differ.  Forced onto the CPU here; the same
+route runs on the GPU."""
 
+import os
 import numpy as np
 import pytest
 
-from sequence_alignment_tools_tpu.io.database import SeqDB
-from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-from sequence_alignment_tools_tpu.models.primer_match import PrimerMatchModel
+from sequence_alignment_tools.io.database import SeqDB
+from sequence_alignment_tools.io.patterns import build_pattern_set
+from sequence_alignment_tools.models.primer_match import PrimerMatchModel
+
+PAT = os.path.join(os.path.dirname(__file__), "data", "pat.txt")
 
 
 def _mutate(rng, pat: str, nmut: int, indels: bool) -> str:
@@ -32,7 +35,7 @@ def planted_db():
     n = 60000
     codes = rng.integers(0, 4, size=n).astype(np.uint8)
     table = b"ACGT\n"
-    pats = [ln.strip() for ln in open("/root/reference/db/pat.txt")
+    pats = [ln.strip() for ln in open(PAT)
             if ln.strip()]
     db = SeqDB(
         codes=codes, table=table,
@@ -84,7 +87,7 @@ def test_gated_matches_host_engine(planted_db, engine, k, indels):
     host = PrimerMatchModel(db, ps, k=k, node=node, indels=indels)
     want = list(host.engine_hits())
     gated = PrimerMatchModel(db, ps, k=k, node=node, indels=indels)
-    gated.pallas_interpret = True
+    gated.force_device = True
     got = list(gated.engine_hits())
     assert got == want
     assert len(want) >= 10
@@ -94,9 +97,9 @@ def test_gate_superset_fuzz(planted_db):
     """Direct superset check: wherever the exact batched extension says
     ok, the device gate must say ok too (the converse may differ — the
     gate ignores constraints and charges every edit cost 1)."""
-    from sequence_alignment_tools_tpu.engine.extend import (
+    from sequence_alignment_tools.engine.extend import (
         BatchSeedExtender, Extender)
-    from sequence_alignment_tools_tpu.ops.gate import ExtendGate, GateTables
+    from sequence_alignment_tools.ops.gate import ExtendGate, GateTables
 
     import jax.numpy as jnp
 
@@ -134,74 +137,15 @@ def test_gate_superset_fuzz(planted_db):
             f"{missed.sum()} true-ok candidates")
 
 
-def test_chain_expansion_duplicate_and_nested_seeds():
-    """Multi-seed escape resolution: the static chain table (two exact
-    seeds matching one start are prefix-related, conv_scan._chain_table)
-    must reproduce the exact rescan's candidate set for duplicate seeds
-    and prefix-nested seeds, including ambiguity fallbacks."""
-    import numpy as np
-
-    from sequence_alignment_tools_tpu.io.database import SeqDB
-    from sequence_alignment_tools_tpu.io.patterns import PatternSet
-    from sequence_alignment_tools_tpu.ops.conv_scan import ConvScanner
-    from sequence_alignment_tools_tpu.ops.tables import build_tables
-
-    rng = np.random.default_rng(7)
-    n = 1 << 21
-    codes = rng.integers(0, 4, size=n).astype(np.uint8)
-    db = SeqDB(codes=codes, table=b"ACGT\n", entry_starts=np.array([0]),
-               entry_lengths=np.array([n]), headers=["x"])
-    # duplicates, prefix chains, and an AMBIGUOUS pair: two chains with
-    # the same (top, size): seeds "AACC*" vs "AACG*" both chaining with
-    # the shared prefix "AAC"
-    seeds = ["ACGTACG", "ACGTACG",     # duplicates (ids 1, 2)
-             "ACGT", "ACGTAC",         # prefixes of 1 (ids 3, 4)
-             "AAC", "AACCT", "AACGT",  # shared prefix, diverging (5-7)
-             "GGTCA"]                  # independent (8)
-    ps = PatternSet(patterns=[""] + seeds, esb=[0] * (len(seeds) + 1),
-                    eeb=[0] * (len(seeds) + 1), n_forward=len(seeds))
-    tables = build_tables(ps, db, wc=False, textn=False)
-    sc = ConvScanner(tables, k=0)
-    tab = sc._chain_table()
-    assert tab is not None
-    keymap, groups, w, winv = tab
-    # this seed set has no colliding chain sums: the weight search keeps
-    # the identity permutation, so keys below are plain id sums
-    assert (w == np.arange(len(w))).all()
-    # the chain of the duplicate pair + prefixes: matcher sids
-    # {0, 1, 2, 3}, so the device-observable id SUM is 6
-    g = keymap[6, 4]
-    assert g >= 0 and list(groups[g]) == [0, 1, 2, 3]
-    # "AACCT" chain {4, 5} (sum 9) and "AACGT" chain {4, 6} (sum 10):
-    # distinct sums, so unambiguous; check they resolve to their own
-    # chains
-    g5 = keymap[9, 2]
-    g6 = keymap[10, 2]
-    assert list(groups[g5]) == [4, 5] and list(groups[g6]) == [4, 6]
-    # expansion matches the exact rescan at real multi positions
-    pos = np.asarray([100, 5000], np.int64)
-    pat = [tables.pat_codes[1, :7], tables.pat_codes[5, :5]]
-    codes[100 : 107] = pat[0]
-    codes[5000 : 5005] = pat[1]
-    ep, es, unres = sc._expand_chains(
-        pos, np.asarray([6, 9], np.int64), np.asarray([4, 2], np.int64))
-    assert not unres.any()
-    want = {(100, 0), (100, 1), (100, 2), (100, 3), (5000, 4), (5000, 5)}
-    assert set(zip(ep.tolist(), es.tolist())) == want
-    rs, rp = sc.rescan_starts_arrays(codes, pos)
-    assert set(zip(rs.tolist(), rp.tolist())) == want
-
-
 def test_wpack_eos_adjacent_hits_exact():
-    """Packed-window path (wpack_transpose): hits whose extension window
-    touches an entry boundary must escape via the EOS flag bit and
-    resolve exactly — engine output identical to the XLA oracle when
-    matches sit immediately before/after EOS separators."""
+    """Hits whose extension window touches an entry boundary resolve
+    exactly — engine output identical to the XLA oracle when matches sit
+    immediately before/after EOS separators."""
     import numpy as np
 
-    from sequence_alignment_tools_tpu.io.database import SeqDB
-    from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-    from sequence_alignment_tools_tpu.models.primer_match import (
+    from sequence_alignment_tools.io.database import SeqDB
+    from sequence_alignment_tools.io.patterns import build_pattern_set
+    from sequence_alignment_tools.models.primer_match import (
         PrimerMatchModel,
     )
 
@@ -227,13 +171,13 @@ def test_wpack_eos_adjacent_hits_exact():
     m = PrimerMatchModel(db, ps, k=1)
     m.use_host = False
     sc = m._halves_ctx()[1]
-    sc.pallas_interpret = True
+    sc.force_device = True
     got = sorted(m.engine_hits())
 
     m2 = PrimerMatchModel(db, ps, k=1)
     m2.use_host = False
     o2 = m2._halves_ctx()[1]
-    o2.use_pallas = False
+    o2.use_fused = False
     want = sorted(m2.engine_hits())
     assert got == want and want
     ends = [e for e, _p, _m in want]
@@ -243,12 +187,9 @@ def test_wpack_eos_adjacent_hits_exact():
 
 
 def test_slot_overflow_segment_escape_parity():
-    """Slot-cap overflow escapes are SEGMENT-granular ((tile*8+r)*nsegs+g,
-    pallas_scan_gated_slots segraw layout): a dense same-phase hit cluster
-    overflowing one segment's capg must rescan exactly that segment's
-    positions — engine output identical to the host oracle.  Regression:
-    the decode once misread the id as a row id and rescanned the wrong
-    positions, losing every overflowed hit."""
+    """A dense periodic hit cluster (every stride-8 start a full match)
+    overflows the default candidate caps: the sticky cap growth must
+    recover every hit — engine output identical to the host oracle."""
     rng = np.random.default_rng(99)
     n = 1 << 17
     codes = rng.integers(0, 4, size=n).astype(np.uint8)
@@ -266,80 +207,42 @@ def test_slot_overflow_segment_escape_parity():
     m = PrimerMatchModel(db, ps, k=1)
     m.use_host = False
     sc = m._halves_ctx()[1]
-    sc.pallas_interpret = True
+    sc.force_device = True
     got = sorted(m.engine_hits())
 
     m2 = PrimerMatchModel(db, ps, k=1)
     m2.use_host = False
     o2 = m2._halves_ctx()[1]
-    o2.use_pallas = False
+    o2.use_fused = False
     want = sorted(m2.engine_hits())
     assert got == want
     assert len(want) >= 80  # the planted cluster is all found
 
 
-@pytest.mark.parametrize("fold", [2, 4])
-def test_fold_lane_collisions(planted_db, fold):
-    """The 2:1 half-fold levels in front of the compaction network
-    (scan_kernel._slots_kernel fold) pair lane u with lane u + Ueff,
-    i.e. positions t and t + j*T/fold of a tile.  Plant seed hits on
-    several members of fold groups — including members whose extensions
-    fail — and require output identity with the host engine: collided
-    groups must come back through the cnt=30 escape + exact rescan of
-    every group position (conv_scan._slots_decode)."""
-    db, pats = planted_db
-    rng = np.random.default_rng(31)
-    codes = np.concatenate(
-        [db.codes] + [rng.integers(0, 4, size=90000).astype(np.uint8)])
-    table = b"ACGT\n"
-    dbc = SeqDB(
-        codes=codes, table=table,
-        entry_starts=np.array([0]), entry_lengths=np.array([len(codes)]),
-        headers=["e1"],
-    )
-
-    def plant(at, s):
-        assert at + len(s) <= len(codes)
-        for j, ch in enumerate(s):
-            dbc.codes[at + j] = table.index(ch.encode())
-
-    # discover the dispatch geometry (T, fold) on a THROWAWAY copy:
-    # device copies cache by host-array identity (the resident-DB
-    # contract), so the real array must not be scanned before planting
+@pytest.mark.parametrize("indels", [True, False])
+def test_gated_many_patterns_matches_host(indels):
+    """A k=1 panel of 40 primers on both strands — 160 half seeds, past
+    the 64-pattern envelope of the old in-kernel pipeline — through the
+    fused gated pipeline: engine output identical to the host engine."""
+    rng = np.random.default_rng(41)
+    n = 1 << 16
+    codes = rng.integers(0, 4, size=n).astype(np.uint8)
+    db = SeqDB(codes=codes, table=b"ACGT\n", entry_starts=np.array([0]),
+               entry_lengths=np.array([n]), headers=["x"])
+    text = "".join("ACGT"[c] for c in codes[:8000])
+    pats = [text[i * 150 : i * 150 + 16 + i % 5] for i in range(40)]
+    for i, p in enumerate(pats[:10]):  # 1-edit copies elsewhere
+        mut = _mutate(rng, p, 1, indels)
+        at = 20000 + 1500 * i
+        codes[at : at + len(mut)] = [b"ACGT".index(c.encode()) for c in mut]
     ps = build_pattern_set(pats, rev_comp=True)
-    dbp = SeqDB(codes=codes.copy(), table=table,
-                entry_starts=np.array([0]),
-                entry_lengths=np.array([len(codes)]), headers=["e1"])
-    probe = PrimerMatchModel(dbp, ps, k=1, node=11, indels=True)
-    probe.pallas_interpret = True
-    _ow, scanner, _b, _d, _e, _g = probe._halves_ctx()
-    scanner._SLOTS_FOLD = fold
-    list(probe.engine_hits())
-    T, _segl, _nsegs, gfold = scanner._slots_geom
-    assert gfold == fold
-    step = T // fold
-    assert len(codes) > T + step + 40, (len(codes), T)
-    p0 = pats[0]
-    # hits on two members of a fold group (same phase r = t % 8)
-    plant(1608, p0)
-    plant(1608 + step, p0)
-    # a true hit grouped with a seed-only hit (failing extension)
-    seedlike = p0[: len(p0) // 2] + "A" * (len(p0) - len(p0) // 2 - 4)
-    plant(3208, p0)
-    plant(3208 + step * (fold - 1), seedlike)
-    if fold == 4:  # three members of one group
-        plant(5608, p0)
-        plant(5608 + step, p0)
-        plant(5608 + 3 * step, p0)
-
-    host = PrimerMatchModel(dbc, ps, k=1, node=11, indels=True)
+    host = PrimerMatchModel(db, ps, k=1, node=11, indels=indels)
     host.use_host = True
     want = list(host.engine_hits())
-    gated = PrimerMatchModel(dbc, ps, k=1, node=11, indels=True)
-    gated.pallas_interpret = True
-    _o2, sc2, *_rest = gated._halves_ctx()
-    sc2._SLOTS_FOLD = fold
+    gated = PrimerMatchModel(db, ps, k=1, node=11, indels=indels)
+    gated.force_device = True
+    _o, sc, *_rest = gated._halves_ctx()
+    assert sc.tables.P > 64
     got = list(gated.engine_hits())
     assert got == want
-    ends = [e for e, _p, _v in got]
-    assert 1608 + len(p0) in ends and 1608 + step + len(p0) in ends
+    assert len(want) >= 50

@@ -9,11 +9,11 @@ classes, k-mismatch rows, EOS poison barriers and multiword state.
 import numpy as np
 import pytest
 
-from sequence_alignment_tools_tpu.io.database import SeqDB
-from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-from sequence_alignment_tools_tpu.ops.conv_scan import ConvScanner
-from sequence_alignment_tools_tpu.ops.host_scan import HostShiftAnd
-from sequence_alignment_tools_tpu.ops.tables import build_tables
+from sequence_alignment_tools.io.database import SeqDB
+from sequence_alignment_tools.io.patterns import build_pattern_set
+from sequence_alignment_tools.ops.conv_scan import ConvScanner
+from sequence_alignment_tools.ops.host_scan import HostShiftAnd
+from sequence_alignment_tools.ops.tables import build_tables
 
 
 def _db(rng, n, sigma=4, entries=1):
@@ -51,7 +51,7 @@ def _plant(db, pats, rng, copies=3):
 
 
 def _host(tables, k, poison=None):
-    sc = ConvScanner(tables, k=k, poison_eos=poison, use_pallas=False)
+    sc = ConvScanner(tables, k=k, poison_eos=poison, use_fused=False)
     sc.use_host = True
     assert sc._host_eligible(1 << 20)
     return sc
@@ -59,7 +59,7 @@ def _host(tables, k, poison=None):
 
 def _xla(tables, k, poison=None):
     sc = ConvScanner(tables, k=k, poison_eos=poison, block=1 << 14,
-                     use_pallas=False)
+                     use_fused=False)
     sc.use_host = False
     return sc
 
@@ -154,7 +154,7 @@ def test_duplicate_and_short_patterns():
     for k in (1, 2):
         hs = HostShiftAnd(tables, k=k, poison_eos=True)
         assert not hs.available()
-        sc = ConvScanner(tables, k=k, use_pallas=False)
+        sc = ConvScanner(tables, k=k, use_fused=False)
         assert not sc._host_eligible(3000)
 
 
@@ -167,7 +167,7 @@ def test_gs_sparse_tables():
     pats = ["ACGTACGTACGTACGTACGT"]
     _plant(db, pats, rng, copies=6)
     # hand-build a sparse table: sample columns 0,2,3,7,9,12 of the pattern
-    from sequence_alignment_tools_tpu.ops.tables import PatternTables
+    from sequence_alignment_tools.ops.tables import PatternTables
 
     cols = [0, 2, 3, 7, 9, 12]
     tmax = 14
@@ -200,7 +200,7 @@ def test_state_budget_gate():
     tables = build_tables(ps, db, wc=False, textn=False)
     hs = HostShiftAnd(tables, k=0, poison_eos=False)
     assert not hs.available()
-    sc = ConvScanner(tables, k=0, use_pallas=False)
+    sc = ConvScanner(tables, k=0, use_fused=False)
     assert not sc._host_eligible(5000)
     list(sc.scan(db.codes))  # falls through without error
 
@@ -213,10 +213,10 @@ def test_threaded_scan_matches_single_thread():
     n >= 1M.)"""
     import numpy as np
 
-    from sequence_alignment_tools_tpu.io.database import SeqDB
-    from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-    from sequence_alignment_tools_tpu.ops.host_scan import HostShiftAnd
-    from sequence_alignment_tools_tpu.ops.tables import build_tables
+    from sequence_alignment_tools.io.database import SeqDB
+    from sequence_alignment_tools.io.patterns import build_pattern_set
+    from sequence_alignment_tools.ops.host_scan import HostShiftAnd
+    from sequence_alignment_tools.ops.tables import build_tables
 
     rng = np.random.default_rng(8)
     n = (1 << 21) + 12345

@@ -7,11 +7,11 @@ free-start / prefix-deletion INIT rows."""
 import numpy as np
 import pytest
 
-from sequence_alignment_tools_tpu.io.database import SeqDB
-from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-from sequence_alignment_tools_tpu.ops.host_scan import HostSellers
-from sequence_alignment_tools_tpu.ops.sellers import SellersScanner
-from sequence_alignment_tools_tpu.ops.tables import build_tables
+from sequence_alignment_tools.io.database import SeqDB
+from sequence_alignment_tools.io.patterns import build_pattern_set
+from sequence_alignment_tools.ops.host_scan import HostSellers
+from sequence_alignment_tools.ops.sellers import SellersScanner
+from sequence_alignment_tools.ops.tables import build_tables
 
 
 def _mk(n, seed=0, entries=4):
@@ -73,7 +73,7 @@ def test_host_sellers_multiword_state():
 def test_filter_engine_host_route_parity():
     """The filter engine's auto host route (one-shot posture) emits the
     byte-identical stream of the pinned device/XLA route."""
-    from sequence_alignment_tools_tpu.models.primer_match import (
+    from sequence_alignment_tools.models.primer_match import (
         PrimerMatchModel,
     )
 

@@ -6,7 +6,7 @@ import tempfile
 
 import pytest
 
-from sequence_alignment_tools_tpu.utils.introsort import introsort
+from sequence_alignment_tools.utils.introsort import introsort
 
 CXX_SRC = r"""
 #include <algorithm>

@@ -8,10 +8,10 @@ import subprocess
 
 import pytest
 
-from sequence_alignment_tools_tpu.apps.aacomp import (
+from sequence_alignment_tools.apps.aacomp import (
     aacomp_main, aacomplookup_main,
 )
-from sequence_alignment_tools_tpu.apps.peptide_mult import (
+from sequence_alignment_tools.apps.peptide_mult import (
     parse_args as pm_args, run as pm_run,
 )
 

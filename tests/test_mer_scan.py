@@ -7,10 +7,10 @@ hash-collision pressure."""
 import numpy as np
 import pytest
 
-from sequence_alignment_tools_tpu.io.database import SeqDB
-from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-from sequence_alignment_tools_tpu.ops.conv_scan import ConvScanner
-from sequence_alignment_tools_tpu.ops.tables import build_tables
+from sequence_alignment_tools.io.database import SeqDB
+from sequence_alignment_tools.io.patterns import build_pattern_set
+from sequence_alignment_tools.ops.conv_scan import ConvScanner
+from sequence_alignment_tools.ops.tables import build_tables
 
 
 def _mk(n, seed, eos_at=()):
@@ -24,11 +24,11 @@ def _mk(n, seed, eos_at=()):
 
 
 def _pair(tables, codes, n):
-    nat = ConvScanner(tables, k=0, use_pallas=False)
+    nat = ConvScanner(tables, k=0, use_fused=False)
     if not nat._mer_lib_ok():
         pytest.skip("native toolchain unavailable")
     got = list(nat._scan_radix(codes))
-    ref = ConvScanner(tables, k=0, use_pallas=False)
+    ref = ConvScanner(tables, k=0, use_fused=False)
     ref._mer_native = lambda *a, **k: None  # pin the numpy census
     want = list(ref._scan_radix(codes))
     return got, want
@@ -78,9 +78,9 @@ def test_huge_p_auto_routes_to_census():
                               for i in range(1300)))
     ps = build_pattern_set(pats, rev_comp=True)  # P > 2048
     tables = build_tables(ps, db, wc=False, textn=False)
-    sc = ConvScanner(tables, k=0, use_pallas=False)
+    sc = ConvScanner(tables, k=0, use_fused=False)
     assert tables.P > sc._PBLOCK
     hits = list(sc.scan(codes))
-    ref = ConvScanner(tables, k=0, use_pallas=False)
+    ref = ConvScanner(tables, k=0, use_fused=False)
     ref._mer_native = lambda *a, **k: None
     assert hits == list(ref._scan_radix(codes)) and hits

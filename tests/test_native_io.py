@@ -14,13 +14,13 @@ import random
 import numpy as np
 import pytest
 
-from sequence_alignment_tools_tpu.io.compress import (
+from sequence_alignment_tools.io.compress import (
     _build_suffix_array_numpy,
     build_suffix_array,
 )
-from sequence_alignment_tools_tpu.io.database import SeqDB
-from sequence_alignment_tools_tpu.io.fasta import native_pass1
-from sequence_alignment_tools_tpu.native import load_fasta_lib, load_sais_lib
+from sequence_alignment_tools.io.database import SeqDB
+from sequence_alignment_tools.io.fasta import native_pass1
+from sequence_alignment_tools.native import load_fasta_lib, load_sais_lib
 
 pytestmark = pytest.mark.skipif(
     load_fasta_lib() is None or load_sais_lib() is None,
@@ -77,7 +77,7 @@ def _write(tmp_path, data: bytes) -> str:
 def _pass1_oracle(path, filter_mode, uppercase, eos_between, eos_start,
                   eos_char):
     """iter_fasta-based reconstruction of the native pass-1 outputs."""
-    from sequence_alignment_tools_tpu.io.fasta import iter_fasta
+    from sequence_alignment_tools.io.fasta import iter_fasta
 
     parts, starts, lengths, headers = [], [], [], []
     pos = 0
@@ -145,7 +145,7 @@ def test_from_fasta_native_matches_python(tmp_path):
         db_native = SeqDB.from_fasta(path)
         db_py = SeqDB.from_entries(
             list(__import__(
-                "sequence_alignment_tools_tpu.io.fasta", fromlist=["iter_fasta"]
+                "sequence_alignment_tools.io.fasta", fromlist=["iter_fasta"]
             ).iter_fasta(path))
         )
         assert db_native.table == db_py.table, repr(data)
@@ -158,18 +158,18 @@ def test_from_fasta_native_matches_python(tmp_path):
 
 
 def test_read_raw_native_matches_python(tmp_path):
-    from sequence_alignment_tools_tpu.io import compress as C
+    from sequence_alignment_tools.io import compress as C
 
     rng = random.Random(13)
     for _ in range(30):
         data = _rand_fasta(rng)
         path = _write(tmp_path, data)
         got = C._read_raw(path, True, True, ord("\n"), True)
-        os.environ["SAT_TPU_NO_NATIVE"] = "1"
+        os.environ["SAT_NO_NATIVE"] = "1"
         try:
             exp = C._read_raw(path, True, True, ord("\n"), True)
         finally:
-            del os.environ["SAT_TPU_NO_NATIVE"]
+            del os.environ["SAT_NO_NATIVE"]
         np.testing.assert_array_equal(got[0], exp[0], err_msg=repr(data))
         assert got[1] == exp[1]
         np.testing.assert_array_equal(got[2], exp[2])

@@ -4,8 +4,8 @@ import random
 
 import pytest
 
-from sequence_alignment_tools_tpu.engine.verify import EditDistAligner
-from sequence_alignment_tools_tpu.native import load_verify_lib
+from sequence_alignment_tools.engine.verify import EditDistAligner
+from sequence_alignment_tools.native import load_verify_lib
 
 
 def _cmp(ra, rb):
@@ -89,7 +89,7 @@ def test_native_extend_fuzz():
     random anchored extensions in every mode."""
     import random
 
-    from sequence_alignment_tools_tpu.engine.extend import Extender
+    from sequence_alignment_tools.engine.extend import Extender
 
     rng = random.Random(123)
     for trial in range(400):

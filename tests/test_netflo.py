@@ -8,7 +8,7 @@ import random
 
 import pytest
 
-from sequence_alignment_tools_tpu.ops.netflo import min_cost_flow
+from sequence_alignment_tools.ops.netflo import min_cost_flow
 
 
 def _brute_min_cost(n, arcs, src, snk, want):

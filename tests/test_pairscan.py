@@ -9,7 +9,7 @@ import subprocess
 
 import pytest
 
-from sequence_alignment_tools_tpu.apps.pairscan import main as ps_main
+from sequence_alignment_tools.apps.pairscan import main as ps_main
 
 
 @pytest.fixture(scope="module")

@@ -1,13 +1,16 @@
-"""Pallas MXU scan kernel vs the XLA reference path (interpret mode on the
-CPU mesh; the compiled kernel is exercised on hardware by bench.py)."""
+"""The fused microhit scan pipeline vs the XLA block-scan reference path
+(forced onto the CPU here; the same route runs on the GPU)."""
 
+import os
 import numpy as np
 import pytest
 
-from sequence_alignment_tools_tpu.io.database import SeqDB
-from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-from sequence_alignment_tools_tpu.ops.conv_scan import ConvScanner
-from sequence_alignment_tools_tpu.ops.tables import build_tables
+from sequence_alignment_tools.io.database import SeqDB
+from sequence_alignment_tools.io.patterns import build_pattern_set
+from sequence_alignment_tools.ops.conv_scan import ConvScanner
+from sequence_alignment_tools.ops.tables import build_tables
+
+PAT = os.path.join(os.path.dirname(__file__), "data", "pat.txt")
 
 
 @pytest.fixture(scope="module")
@@ -16,7 +19,7 @@ def planted_db():
     n = 30000
     codes = rng.integers(0, 4, size=n).astype(np.uint8)
     table = b"ACGT\n"
-    pats = [ln.strip() for ln in open("/root/reference/db/pat.txt")
+    pats = [ln.strip() for ln in open(PAT)
             if ln.strip()]
     db = SeqDB(
         codes=codes, table=table,
@@ -40,11 +43,11 @@ def test_pallas_matches_xla_path(planted_db, k):
     db, pats = planted_db
     ps = build_pattern_set(pats, rev_comp=True)
     tables = build_tables(ps, db, wc=False, textn=False)
-    ref = ConvScanner(tables, k=k, block=1 << 15, use_pallas=False)
+    ref = ConvScanner(tables, k=k, block=1 << 15, use_fused=False)
     ref.use_host = False  # pin the XLA block path
     want = list(ref.scan(db.codes))
-    got_sc = ConvScanner(tables, k=k, use_pallas=True)
-    got_sc.pallas_interpret = True
+    got_sc = ConvScanner(tables, k=k, use_fused=True)
+    got_sc.force_device = True
     got = list(got_sc.scan(db.codes))
     assert got == want
     assert len(want) >= (12 if k == 0 else 12)
@@ -56,8 +59,8 @@ def test_scan_stream_matches_scan(planted_db):
     db, pats = planted_db
     ps = build_pattern_set(pats, rev_comp=True)
     tables = build_tables(ps, db, wc=False, textn=False)
-    sc = ConvScanner(tables, k=0, use_pallas=True)
-    sc.pallas_interpret = True
+    sc = ConvScanner(tables, k=0, use_fused=True)
+    sc.force_device = True
     blocks = [db.codes, db.codes[: len(db.codes) // 2], db.codes]
     want = [list(sc.scan(b)) for b in blocks]
     got = dict(sc.scan_stream(iter(blocks)))
@@ -71,8 +74,8 @@ def test_scan_stream_grouped_flush(planted_db):
     db, pats = planted_db
     ps = build_pattern_set(pats, rev_comp=True)
     tables = build_tables(ps, db, wc=False, textn=False)
-    sc = ConvScanner(tables, k=0, use_pallas=True)
-    sc.pallas_interpret = True
+    sc = ConvScanner(tables, k=0, use_fused=True)
+    sc.force_device = True
     blocks = [db.codes, db.codes[: len(db.codes) // 2],
               db.codes[:3000], db.codes] * 3
     want = [list(sc.scan(b)) for b in blocks]
@@ -80,8 +83,8 @@ def test_scan_stream_grouped_flush(planted_db):
     assert [got[i] for i in range(len(blocks))] == want
     # group overflow: gcap smaller than the live totals forces the
     # stacked-row fallback and grows gcap for subsequent groups
-    sc2 = ConvScanner(tables, k=0, use_pallas=True)
-    sc2.pallas_interpret = True
+    sc2 = ConvScanner(tables, k=0, use_fused=True)
+    sc2.force_device = True
     sc2._gcap = 8
     got2 = dict(sc2.scan_stream(iter(blocks), depth=4))
     assert [got2[i] for i in range(len(blocks))] == want
@@ -99,7 +102,7 @@ def test_radix_path_matches_xla(planted_db):
                     {p[len(p) // 2 :] for p in pats})
     ps = build_pattern_set(halves, rev_comp=False)
     tables = build_tables(ps, db, wc=False, textn=False)
-    sc = ConvScanner(tables, k=0, use_pallas=False)
+    sc = ConvScanner(tables, k=0, use_fused=False)
     sc.use_host = False  # pin the XLA block path
     want = list(sc.scan(db.codes))
     assert sc._radix_eligible()
@@ -110,13 +113,14 @@ def test_radix_path_matches_xla(planted_db):
     ps2 = build_pattern_set([halves[0], halves[0], halves[1]],
                             rev_comp=False)
     t2 = build_tables(ps2, db, wc=False, textn=False)
-    sc2 = ConvScanner(t2, k=0, use_pallas=False)
+    sc2 = ConvScanner(t2, k=0, use_fused=False)
     sc2.use_host = False
     assert list(sc2._scan_radix(db.codes)) == list(sc2.scan(db.codes))
 
 
 def test_pallas_pattern_tiling(planted_db):
-    """P > 128 runs the 2-D (text, pattern-tile) kernel grid."""
+    """P > 128 patterns (past the old kernel's pattern tile) in one
+    fused pass."""
     import numpy as np
 
     db, pats = planted_db
@@ -127,8 +131,8 @@ def test_pallas_pattern_tiling(planted_db):
     ps = build_pattern_set(pats + fillers, rev_comp=False)
     tables = build_tables(ps, db, wc=False, textn=False)
     assert tables.P > 128
-    sc = ConvScanner(tables, k=0, use_pallas=True)
-    sc.pallas_interpret = True
-    want_sc = ConvScanner(tables, k=0, use_pallas=False)
+    sc = ConvScanner(tables, k=0, use_fused=True)
+    sc.force_device = True
+    want_sc = ConvScanner(tables, k=0, use_fused=False)
     want_sc.use_host = False
     assert list(sc.scan(db.codes)) == list(want_sc.scan(db.codes))

@@ -6,10 +6,10 @@ path's full (end, pid, mism) stream — the regime of xmers phase-1 batches
 
 import numpy as np
 
-from sequence_alignment_tools_tpu.io.database import SeqDB
-from sequence_alignment_tools_tpu.io.patterns import PatternSet
-from sequence_alignment_tools_tpu.ops.conv_scan import ConvScanner
-from sequence_alignment_tools_tpu.ops.tables import build_tables
+from sequence_alignment_tools.io.database import SeqDB
+from sequence_alignment_tools.io.patterns import PatternSet
+from sequence_alignment_tools.ops.conv_scan import ConvScanner
+from sequence_alignment_tools.ops.tables import build_tables
 
 
 def _big_problem(P=2200, n=60000, L=16, seed=11, k=0):
@@ -40,13 +40,13 @@ def test_pblocked_matches_xla_exact():
     db, tables = _big_problem()
     assert tables.P > ConvScanner._PBLOCK
 
-    ref = ConvScanner(tables, k=0, use_pallas=False)
+    ref = ConvScanner(tables, k=0, use_fused=False)
     ref.use_host = False
     want = sorted(ref.scan(db.codes))
     assert len(want) >= tables.P  # every pattern occurs
 
-    sc = ConvScanner(tables, k=0, use_pallas=True)
-    sc.pallas_interpret = True
+    sc = ConvScanner(tables, k=0, use_fused=True)
+    sc.force_device = True
     sc.use_host = False
     got_stream = list(sc.scan(db.codes))
     assert sorted(got_stream) == want
@@ -59,12 +59,12 @@ def test_pblocked_matches_xla_exact():
 
 def test_pblocked_matches_xla_k1():
     db, tables = _big_problem(P=2100, n=30000)
-    ref = ConvScanner(tables, k=1, poison_eos=True, use_pallas=False)
+    ref = ConvScanner(tables, k=1, poison_eos=True, use_fused=False)
     ref.use_host = False
     want = sorted(ref.scan(db.codes))
 
-    sc = ConvScanner(tables, k=1, poison_eos=True, use_pallas=True)
-    sc.pallas_interpret = True
+    sc = ConvScanner(tables, k=1, poison_eos=True, use_fused=True)
+    sc.force_device = True
     sc.use_host = False
     got = sorted(sc.scan(db.codes))
     assert got == want and want
@@ -75,22 +75,22 @@ def test_pblocked_scan_stream():
     codes = np.asarray(db.codes)
     blocks = [codes[:17000], codes[17000:]]
 
-    ref = ConvScanner(tables, k=0, use_pallas=False)
+    ref = ConvScanner(tables, k=0, use_fused=False)
     ref.use_host = False
     want = {i: sorted(ref.scan(b)) for i, b in enumerate(blocks)}
 
-    sc = ConvScanner(tables, k=0, use_pallas=True)
-    sc.pallas_interpret = True
+    sc = ConvScanner(tables, k=0, use_fused=True)
+    sc.force_device = True
     sc.use_host = False
     got = {i: sorted(h) for i, h in sc.scan_stream(iter(blocks))}
     assert got == want
 
 
 def test_long_pattern_notice_in_verbose_report():
-    """Lmax > 128 (Mosaic halo) is announced in the strategy report
+    """Lmax > 128 (past the fused filter) is announced in the strategy report
     rather than silently rerouted (select-announcement style)."""
-    from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-    from sequence_alignment_tools_tpu.models.primer_match import (
+    from sequence_alignment_tools.io.patterns import build_pattern_set
+    from sequence_alignment_tools.models.primer_match import (
         select_report,
     )
 
@@ -104,4 +104,4 @@ def test_long_pattern_notice_in_verbose_report():
     ps2 = build_pattern_set([long_pat[:20]])
     lines2 = select_report(db, ps2, k=0, wc=False, textn=False, seedlen=0,
                            node=0, indels=True, dna_mut=False)
-    assert not any("Mosaic" in l for l in lines2)
+    assert not any("fused scan filter" in l for l in lines2)

@@ -7,7 +7,7 @@ import subprocess
 
 import pytest
 
-from sequence_alignment_tools_tpu.apps.pcr_match import parse_args, run
+from sequence_alignment_tools.apps.pcr_match import parse_args, run
 
 RC = {"A": "T", "C": "G", "G": "C", "T": "A"}
 

@@ -8,7 +8,7 @@ import subprocess
 
 import pytest
 
-from sequence_alignment_tools_tpu.apps.peptide_scan import parse_args, run
+from sequence_alignment_tools.apps.peptide_scan import parse_args, run
 
 AAS = "ACDEFGHIKLMNPQRSTVWY"
 PEPS = ["MKTAYIAKQR", "LLDFGAKHE", "WWSPNNVTK", "GGIEDELK"]

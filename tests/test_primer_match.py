@@ -1,6 +1,6 @@
 """End-to-end byte parity of primer_match output vs the reference binary.
 
-This is the TPU build's version of the reference's testscript.sh identity
+This is this framework's version of the reference's testscript.sh identity
 matrix (testscript.sh:146-422): the same query under many configurations must
 produce byte-identical output.
 """
@@ -12,9 +12,9 @@ import subprocess
 
 import pytest
 
-from sequence_alignment_tools_tpu.apps.primer_match import parse_args, run
+from sequence_alignment_tools.apps.primer_match import parse_args, run
 
-PAT = "/root/reference/db/pat.txt"
+PAT = os.path.join(os.path.dirname(__file__), "data", "pat.txt")
 
 
 @pytest.fixture(scope="module")

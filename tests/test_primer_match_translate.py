@@ -10,7 +10,7 @@ import subprocess
 
 import pytest
 
-from sequence_alignment_tools_tpu.apps.primer_match import parse_args, run
+from sequence_alignment_tools.apps.primer_match import parse_args, run
 
 AAS = "ACDEFGHIKLMNPQRSTVW"  # no Y: keeps random pep hits unambiguous
 PEPS = ["MKTAYIAK", "LLDFGAKHE", "WWSPNNVT", "GGIEDELK"]

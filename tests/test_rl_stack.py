@@ -8,8 +8,8 @@ import subprocess
 
 import pytest
 
-from sequence_alignment_tools_tpu.apps.indexer import main as ix_main
-from sequence_alignment_tools_tpu.apps.indexer import main_aa as ixaa_main
+from sequence_alignment_tools.apps.indexer import main as ix_main
+from sequence_alignment_tools.apps.indexer import main_aa as ixaa_main
 
 
 @pytest.fixture(scope="module")
@@ -74,7 +74,7 @@ XS_CONFIGS = [["-m", "6"], ["-m", "6", "-a"], ["-m", "3", "-a"],
 
 @pytest.mark.parametrize("cfg", XS_CONFIGS, ids=lambda c: " ".join(c))
 def test_xspace_parity(oracle, dna_indexed, tmp_path, cfg):
-    from sequence_alignment_tools_tpu.apps.xspace import xspace_main
+    from sequence_alignment_tools.apps.xspace import xspace_main
 
     ref = _require(oracle, "Xspace")
     b = dna_indexed
@@ -93,7 +93,7 @@ LO_CONFIGS = [["-k", "6"], ["-k", "6", "-R"], ["-k", "3", "-R"],
 @pytest.mark.parametrize("cfg", LO_CONFIGS, ids=lambda c: " ".join(c))
 def test_xspacelo_parity(oracle, dna_indexed, tmp_path, cfg):
     """Incl. revcomp streaming and multi-block plans (-M 1)."""
-    from sequence_alignment_tools_tpu.apps.xspace import xspacelo_main
+    from sequence_alignment_tools.apps.xspace import xspacelo_main
 
     ref = _require(oracle, "XspaceLo")
     b = dna_indexed
@@ -109,7 +109,7 @@ def test_xspacelo_parity(oracle, dna_indexed, tmp_path, cfg):
 
 
 def test_xspace_amino(oracle, tmp_path):
-    from sequence_alignment_tools_tpu.apps.xspace import (xspace_main,
+    from sequence_alignment_tools.apps.xspace import (xspace_main,
                                                           xspacelo_main)
 
     refi = _require(oracle, "IndexerAA")

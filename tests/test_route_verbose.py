@@ -1,5 +1,5 @@
 """Engine-route announcements (VERDICT r3 item 8): every tier change —
-host machine vs Mosaic kernel vs gated slots vs Myers vs Sellers row-DP —
+host machine vs fused pipeline vs gated pipeline vs Sellers scans —
 must be observable as a ``Route:`` strategy line (select.cc:182-275
 announcement spirit) under SAT_ROUTE_VERBOSE=1 or -v, with a pinned
 format."""
@@ -12,9 +12,9 @@ import sys
 import numpy as np
 import pytest
 
-from sequence_alignment_tools_tpu.io.database import SeqDB
-from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-from sequence_alignment_tools_tpu.models.primer_match import PrimerMatchModel
+from sequence_alignment_tools.io.database import SeqDB
+from sequence_alignment_tools.io.patterns import build_pattern_set
+from sequence_alignment_tools.models.primer_match import PrimerMatchModel
 
 PATS = ["ACGTACGTACGTA", "TTGGCCAATTGGC"]
 
@@ -43,11 +43,11 @@ def route_env(monkeypatch):
 def test_gated_slots_route(small_db, route_env, capfd):
     ps = build_pattern_set(PATS, rev_comp=True)
     m = PrimerMatchModel(small_db, ps, k=1, indels=True)
-    m.pallas_interpret = True
+    m.force_device = True
     list(m.engine_hits())
     routes = _routes(capfd)
     assert any(re.fullmatch(
-        r"all-Pallas gated slots pipeline \(P=\d+, Lmax=\d+, k=\d+\)", r)
+        r"fused gated pipeline \(P=\d+, Lmax=\d+, k=\d+\)", r)
         for r in routes), routes
 
 
@@ -57,34 +57,34 @@ def test_host_tier_route(small_db, route_env, capfd):
     list(m.engine_hits())
     routes = _routes(capfd)
     assert any(r.startswith("native shift-and host machine")
-               or r.startswith("fused Mosaic")
+               or r.startswith("fused microhit")
                or r.startswith("host ") for r in routes), routes
 
 
 def test_myers_vs_sellers_route(small_db, route_env, capfd):
-    """The k-edit kernel eligibility cliff (Myers needs Lmax + k <= 32)
-    must announce which kernel actually runs."""
-    from sequence_alignment_tools_tpu.ops.sellers import SellersScanner
-    from sequence_alignment_tools_tpu.ops.tables import build_tables
+    """The k-edit scans announce which one runs: the block DP from
+    ``scan``, the whole-array device scan from ``scan_pairs``, for short
+    and long patterns alike."""
+    from sequence_alignment_tools.ops.sellers import SellersScanner
+    from sequence_alignment_tools.ops.tables import build_tables
 
     ps = build_pattern_set(PATS, rev_comp=True)
     t = build_tables(ps, small_db, wc=False, textn=False)
     sc = SellersScanner(t, k=1, indels=True)
-    sc.pallas_interpret = True
+    sc.force_device = True
     sc.use_host = False
     list(sc.scan(small_db.codes[:20000]))
     routes = _routes(capfd)
-    assert any("Myers bit-parallel" in r or "Sellers" in r
-               for r in routes), routes
-    # long patterns fall off the Myers cliff -> the row-DP must announce
+    assert any(r.startswith("XLA Sellers block DP") for r in routes), routes
     long_ps = build_pattern_set(["ACGT" * 10], rev_comp=False)
     t2 = build_tables(long_ps, small_db, wc=False, textn=False)
     sc2 = SellersScanner(t2, k=1, indels=True)
-    sc2.pallas_interpret = True
+    sc2.force_device = True
     sc2.use_host = False
-    list(sc2.scan(small_db.codes[:20000]))
+    sc2.scan_pairs(small_db.codes[:20000])
     routes2 = _routes(capfd)
-    assert any("Sellers" in r for r in routes2), routes2
+    assert any(r.startswith("XLA Sellers whole-array scan")
+               for r in routes2), routes2
 
 
 def test_cli_v_prints_routes(tmp_path):
@@ -96,7 +96,7 @@ def test_cli_v_prints_routes(tmp_path):
         seq[i : i + 70] for i in range(0, len(seq), 70)) + "\n")
     r = subprocess.run(
         [sys.executable, "-m",
-         "sequence_alignment_tools_tpu.apps.primer_match",
+         "sequence_alignment_tools.apps.primer_match",
          "-i", str(fa), "-p", PATS[0], "-r", "-c", "-v"],
         capture_output=True, text=True, timeout=600,
         env={**os.environ, "JAX_PLATFORMS": "cpu"},

@@ -8,10 +8,10 @@ boundaries (halo deferral), and cap overflow retries."""
 import numpy as np
 import pytest
 
-from sequence_alignment_tools_tpu.io.database import SeqDB
-from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-from sequence_alignment_tools_tpu.ops.sellers import SellersScanner
-from sequence_alignment_tools_tpu.ops.tables import build_tables
+from sequence_alignment_tools.io.database import SeqDB
+from sequence_alignment_tools.io.patterns import build_pattern_set
+from sequence_alignment_tools.ops.sellers import SellersScanner
+from sequence_alignment_tools.ops.tables import build_tables
 
 
 @pytest.fixture(scope="module")

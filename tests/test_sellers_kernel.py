@@ -1,17 +1,16 @@
-"""Mosaic Sellers kernel (ops.sellers._sellers_kernel): the in-kernel
-k-edit candidate scan must produce the exact candidate SET of the XLA
-block DP (shift_and_inexact.cc:249-350 semantics), including EOS gating,
-multi-pattern boundaries (escaped + numpy-rescanned), segment halos and
-slot overflow."""
+"""The device k-edit scan (ops.sellers.SellersScanner.scan_pairs): the
+whole-array XLA Sellers scan over large blocks must produce the exact
+candidate SET of the small-block DP and of the native Sellers row machine
+(shift_and_inexact.cc:249-350 semantics), including EOS gating,
+multi-pattern boundaries, block halos and cap overflow."""
 
 import numpy as np
 import pytest
 
-from sequence_alignment_tools_tpu.io.database import SeqDB
-from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-from sequence_alignment_tools_tpu.ops.sellers import (SEG, SellersScanner,
-                                                      segment_matrix)
-from sequence_alignment_tools_tpu.ops.tables import build_tables
+from sequence_alignment_tools.io.database import SeqDB
+from sequence_alignment_tools.io.patterns import build_pattern_set
+from sequence_alignment_tools.ops.sellers import SellersScanner
+from sequence_alignment_tools.ops.tables import build_tables
 
 
 def _mk(n, seed=0, entries=3):
@@ -30,7 +29,7 @@ def _mk(n, seed=0, entries=3):
 @pytest.mark.parametrize("seed,k,indels", [(0, 1, True), (1, 2, True),
                                            (2, 2, True), (3, 1, True)])
 def test_kernel_matches_block_dp(seed, k, indels):
-    n = 2 * 8 * SEG + 777  # partial trailing segment + pad tile
+    n = 3 * (1 << 14) + 777  # partial trailing block
     db = _mk(n, seed=seed)
     codes = np.asarray(db.codes)
     text = "".join("ACGT"[c] if c < 4 else "A" for c in codes[:6000])
@@ -44,16 +43,22 @@ def test_kernel_matches_block_dp(seed, k, indels):
     want = sorted((e, p) for e, p, _ in ref.scan(codes))
 
     sc = SellersScanner(tables, k=k, indels=indels)
-    sc.pallas_interpret = True
-    assert sc.kernel_available(n)
+    sc.force_device = True
+    sc._PAIRS_BLOCK = 1 << 14  # several blocks, one partial
+    assert sc.device_available(n)
     ends, pids = sc.scan_pairs(codes)
     got = sorted(zip(ends.tolist(), pids.tolist()))
     assert got == want and want
+    host = SellersScanner(tables, k=k, indels=indels)
+    if host._host_eligible(n):  # the native row machine agrees
+        he, hp = host.host_pairs(codes)
+        assert sorted(zip(he.tolist(), hp.tolist())) == want
 
 
 def test_kernel_overflow_rows_escape():
-    """A poly-A region makes one segment row exceed the slot cap: its
-    whole row must rescan exactly (candidate set unchanged)."""
+    """A poly-A region floods one block with candidates past the
+    default cap: the cap grows and the candidate set is unchanged."""
+    SEG = 4096
     n = 8 * SEG
     db = _mk(n, seed=9, entries=1)
     codes = np.asarray(db.codes)
@@ -64,8 +69,9 @@ def test_kernel_overflow_rows_escape():
     ref = SellersScanner(tables, k=1, indels=True, block=1 << 16)
     want = sorted((e, p) for e, p, _ in ref.scan(codes))
 
-    sc = SellersScanner(tables, k=1, indels=True)
-    sc.pallas_interpret = True
+    sc = SellersScanner(tables, k=1, indels=True, cap=64)
+    sc.force_device = True
     ends, pids = sc.scan_pairs(codes)
+    assert sc.cap > 64
     got = sorted(zip(ends.tolist(), pids.tolist()))
     assert got == want and len(want) > 1500

@@ -8,13 +8,13 @@ import subprocess
 
 import pytest
 
-from sequence_alignment_tools_tpu.apps.kmer_count import (
+from sequence_alignment_tools.apps.kmer_count import (
     parse_args as kc_args, run as kc_run,
 )
-from sequence_alignment_tools_tpu.apps.polyrun import (
+from sequence_alignment_tools.apps.polyrun import (
     parse_args as pr_args, run as pr_run,
 )
-from sequence_alignment_tools_tpu.apps.protein_mw import (
+from sequence_alignment_tools.apps.protein_mw import (
     parse_args as mw_args, run as mw_run,
 )
 
@@ -85,7 +85,7 @@ def test_kmer_count_binary(oracle, seq_fasta, tmp_path):
     args = ["-i", seq_fasta, "-k", "4", "-a", "-b"]
     ref = _run_flaky([kc] + args, text=False)
     out = tmp_path / "kc.bin"
-    from sequence_alignment_tools_tpu.apps.kmer_count import main as kc_main
+    from sequence_alignment_tools.apps.kmer_count import main as kc_main
 
     kc_main(args + ["-o", str(out)])
     assert out.read_bytes() == ref

@@ -6,9 +6,9 @@ posture bench.py measures (see _model_bps/_stream_bps)."""
 import numpy as np
 import pytest
 
-from sequence_alignment_tools_tpu.io.database import SeqDB
-from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-from sequence_alignment_tools_tpu.models.primer_match import PrimerMatchModel
+from sequence_alignment_tools.io.database import SeqDB
+from sequence_alignment_tools.io.patterns import build_pattern_set
+from sequence_alignment_tools.models.primer_match import PrimerMatchModel
 
 
 def _db(seed=3, n=1 << 17):
@@ -24,8 +24,8 @@ def _pats(db, codes, k):
     return [text[100:120], text[9000:9022], text[17000:17015]]
 
 
-def _interpretize(model):
-    # route every scanner the model builds through the interpret kernels
+def _force_device(model):
+    # route every scanner the model builds through the device pipelines
     model.use_host = False
     for ctx in ("_halves_ctx", "_bases_ctx", "_exact_ctx", "_filter_ctx"):
         try:
@@ -33,8 +33,8 @@ def _interpretize(model):
         except Exception:
             continue
         for p in parts:
-            if hasattr(p, "pallas_interpret"):
-                p.pallas_interpret = True
+            if hasattr(p, "force_device"):
+                p.force_device = True
     return model
 
 
@@ -47,7 +47,7 @@ def _interpretize(model):
 def test_engine_stream_matches_sequential(kw, engine):
     db, codes = _db()
     ps = build_pattern_set(_pats(db, codes, kw.get("k", 0)), rev_comp=True)
-    m = _interpretize(PrimerMatchModel(db, ps, **kw))
+    m = _force_device(PrimerMatchModel(db, ps, **kw))
     want = list(m.engine_hits())
     runs = list(m.engine_hits_stream(3))
     assert len(runs) == 3
@@ -56,14 +56,14 @@ def test_engine_stream_matches_sequential(kw, engine):
 
 
 def test_pcr_pairs_stream_matches_sequential():
-    from sequence_alignment_tools_tpu.models.pcr_match import PcrMatchModel
-    from sequence_alignment_tools_tpu.utils.iupac import reverse_comp
+    from sequence_alignment_tools.models.pcr_match import PcrMatchModel
+    from sequence_alignment_tools.utils.iupac import reverse_comp
 
     db, codes = _db(seed=9)
     text = "".join("ACGT"[c] if c < 4 else "A" for c in codes[:40000])
     fwd = text[5000:5015]
     rev = reverse_comp(text[5800:5815])
-    from sequence_alignment_tools_tpu.apps.pcr_match import (
+    from sequence_alignment_tools.apps.pcr_match import (
         build_pair_pattern_set,
     )
 

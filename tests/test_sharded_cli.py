@@ -4,7 +4,7 @@ primer_match.cc:1236-1247 are device-count invariant), and the sharded
 pipelined scan stream must match the single-chip stream block for block.
 
 The mesh is opted into with SAT_MESH=8 on the virtual CPU mesh the
-conftest forces (parallel.shard.auto_mesh); real TPU slices auto-shard.
+conftest forces (parallel.shard.auto_mesh); multi-GPU hosts auto-shard.
 """
 
 import os
@@ -12,8 +12,10 @@ import os
 import numpy as np
 import pytest
 
-from sequence_alignment_tools_tpu.apps import pcr_match, primer_match
+from sequence_alignment_tools.apps import pcr_match, primer_match
 from tests.conftest import make_synthetic_fasta
+
+PAT = os.path.join(os.path.dirname(__file__), "data", "pat.txt")
 
 PATS = None
 
@@ -21,7 +23,7 @@ PATS = None
 def _pats():
     global PATS
     if PATS is None:
-        PATS = [l.strip() for l in open("/root/reference/db/pat.txt")
+        PATS = [l.strip() for l in open(PAT)
                 if l.strip()]
     return PATS
 
@@ -49,7 +51,7 @@ def _run_cli(app, argv, tmp_path, name, mesh=None):
     ["-k", "1", "-c", "-a"],  # counts path
 ])
 def test_primer_match_cli_mesh_parity(tmp_path, syn_fasta, extra):
-    argv = ["-i", syn_fasta, "-P", "/root/reference/db/pat.txt", "-r"] + extra
+    argv = ["-i", syn_fasta, "-P", PAT, "-r"] + extra
     one = _run_cli(primer_match, argv, tmp_path, "one.txt", mesh=None)
     eight = _run_cli(primer_match, argv, tmp_path, "eight.txt", mesh=8)
     assert one and one == eight
@@ -61,7 +63,7 @@ def test_pcr_match_cli_mesh_parity_straddle(tmp_path):
     maxdist=2000 later in shard d+1 (pcr_match.cc:1034-1059 join window).
     The host-side pathitmap join consumes the globally merged sharded hit
     stream, so pairs must survive every boundary."""
-    from sequence_alignment_tools_tpu.utils.iupac import reverse_comp
+    from sequence_alignment_tools.utils.iupac import reverse_comp
 
     fwd = "ACGTTGCAACGTAGG"
     rev = "TTGACCGGTTACAGT"  # as it appears on the forward strand: rc(rev)
@@ -86,11 +88,11 @@ def test_sharded_scan_stream_matches_single(syn_fasta):
     including the overflow-retry path (tiny forced caps)."""
     import jax
 
-    from sequence_alignment_tools_tpu.io.database import SeqDB
-    from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-    from sequence_alignment_tools_tpu.ops.conv_scan import ConvScanner
-    from sequence_alignment_tools_tpu.ops.tables import build_tables
-    from sequence_alignment_tools_tpu.parallel.shard import (
+    from sequence_alignment_tools.io.database import SeqDB
+    from sequence_alignment_tools.io.patterns import build_pattern_set
+    from sequence_alignment_tools.ops.conv_scan import ConvScanner
+    from sequence_alignment_tools.ops.tables import build_tables
+    from sequence_alignment_tools.parallel.shard import (
         make_mesh,
         sharded_scan_stream,
     )
@@ -107,25 +109,25 @@ def test_sharded_scan_stream_matches_single(syn_fasta):
     dense = np.tile(pat_codes, 400)
     blocks = [codes[: len(codes) // 2], codes[len(codes) // 2 :], dense]
 
-    sc = ConvScanner(tables, k=0, use_pallas=True)
-    sc.pallas_interpret = True
+    sc = ConvScanner(tables, k=0, use_fused=True)
+    sc.force_device = True
     want = {i: sorted(sc.scan(b)) for i, b in enumerate(blocks)}
     assert any(want.values())
 
     mesh = make_mesh(jax.devices()[:8])
-    sc2 = ConvScanner(tables, k=0, use_pallas=True)
-    sc2.pallas_interpret = True
+    sc2 = ConvScanner(tables, k=0, use_fused=True)
+    sc2.force_device = True
     got = {i: sorted(h) for i, h in
-           sharded_scan_stream(sc2, iter(blocks), mesh, interpret=True)}
+           sharded_scan_stream(sc2, iter(blocks), mesh)}
     assert got == want
 
     # overflow retry: force caps below the true counts
-    sc3 = ConvScanner(tables, k=0, use_pallas=True)
-    sc3.pallas_interpret = True
+    sc3 = ConvScanner(tables, k=0, use_fused=True)
+    sc3.force_device = True
     sc3._cap_mb = 2
     sc3._hit_cap = 2
     got3 = {i: sorted(h) for i, h in
-            sharded_scan_stream(sc3, iter(blocks), mesh, interpret=True)}
+            sharded_scan_stream(sc3, iter(blocks), mesh)}
     assert got3 == want
     assert sc3._cap_mb > 2 or sc3._hit_cap > 2
 
@@ -135,11 +137,11 @@ def test_scanner_mesh_attr_routes_stream(syn_fasta):
     sharded pipeline and yields the single-chip stream."""
     import jax
 
-    from sequence_alignment_tools_tpu.io.database import SeqDB
-    from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-    from sequence_alignment_tools_tpu.ops.conv_scan import ConvScanner
-    from sequence_alignment_tools_tpu.ops.tables import build_tables
-    from sequence_alignment_tools_tpu.parallel.shard import make_mesh
+    from sequence_alignment_tools.io.database import SeqDB
+    from sequence_alignment_tools.io.patterns import build_pattern_set
+    from sequence_alignment_tools.ops.conv_scan import ConvScanner
+    from sequence_alignment_tools.ops.tables import build_tables
+    from sequence_alignment_tools.parallel.shard import make_mesh
 
     db = SeqDB.from_fasta(syn_fasta)
     ps = build_pattern_set(_pats(), rev_comp=True)
@@ -147,12 +149,12 @@ def test_scanner_mesh_attr_routes_stream(syn_fasta):
     codes = np.asarray(db.codes)
     blocks = [codes[:20000], codes[20000:]]
 
-    sc = ConvScanner(tables, k=0, use_pallas=True)
-    sc.pallas_interpret = True
+    sc = ConvScanner(tables, k=0, use_fused=True)
+    sc.force_device = True
     want = {i: sorted(h) for i, h in sc.scan_stream(iter(blocks))}
 
-    sc2 = ConvScanner(tables, k=0, use_pallas=True)
-    sc2.pallas_interpret = True
+    sc2 = ConvScanner(tables, k=0, use_fused=True)
+    sc2.force_device = True
     sc2.mesh = make_mesh(jax.devices()[:8])
     got = {i: sorted(h) for i, h in sc2.scan_stream(iter(blocks))}
     assert got == want and any(want.values())
@@ -161,7 +163,7 @@ def test_scanner_mesh_attr_routes_stream(syn_fasta):
 def test_primer_match_cli_mesh_parity_sellers(tmp_path, syn_fasta):
     """-N 5 (filter engine) with indels routes the Sellers scanner through
     the sharded per-shard DP; CLI output must be 1 ≡ N."""
-    argv = ["-i", syn_fasta, "-P", "/root/reference/db/pat.txt", "-r",
+    argv = ["-i", syn_fasta, "-P", PAT, "-r",
             "-k", "1", "-N", "5"]
     one = _run_cli(primer_match, argv, tmp_path, "one.txt", mesh=None)
     eight = _run_cli(primer_match, argv, tmp_path, "eight.txt", mesh=8)
@@ -174,11 +176,11 @@ def test_sharded_sellers_scan_matches_single(syn_fasta):
     filter engine sorts globally)."""
     import jax
 
-    from sequence_alignment_tools_tpu.io.database import SeqDB
-    from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-    from sequence_alignment_tools_tpu.ops.sellers import SellersScanner
-    from sequence_alignment_tools_tpu.ops.tables import build_tables
-    from sequence_alignment_tools_tpu.parallel.shard import (
+    from sequence_alignment_tools.io.database import SeqDB
+    from sequence_alignment_tools.io.patterns import build_pattern_set
+    from sequence_alignment_tools.ops.sellers import SellersScanner
+    from sequence_alignment_tools.ops.tables import build_tables
+    from sequence_alignment_tools.parallel.shard import (
         make_mesh,
         sharded_sellers_scan,
     )
@@ -204,18 +206,18 @@ def test_host_chip_mesh_2d(syn_fasta):
     import jax
     import jax.numpy as jnp
 
-    from sequence_alignment_tools_tpu.io.database import SeqDB
-    from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-    from sequence_alignment_tools_tpu.ops.conv_scan import ConvScanner
-    from sequence_alignment_tools_tpu.ops.tables import (
+    from sequence_alignment_tools.io.database import SeqDB
+    from sequence_alignment_tools.io.patterns import build_pattern_set
+    from sequence_alignment_tools.ops.conv_scan import ConvScanner
+    from sequence_alignment_tools.ops.tables import (
         build_tables,
         conv_weights,
     )
-    from sequence_alignment_tools_tpu.parallel.multihost import (
+    from sequence_alignment_tools.parallel.multihost import (
         init_distributed,
         make_host_chip_mesh,
         shard_codes_2d,
-        sharded_pallas_scan_hits_2d,
+        sharded_scan_hits_2d,
         sharded_scan_counts_2d,
     )
 
@@ -241,24 +243,23 @@ def test_host_chip_mesh_2d(syn_fasta):
     for d in range(1, 8):
         np.testing.assert_array_equal(flat[d], flat[0])
 
-    sc = ConvScanner(tables, k=0, use_pallas=True)
-    sc.pallas_interpret = True
+    sc = ConvScanner(tables, k=0, use_fused=True)
+    sc.force_device = True
     want = sorted(sc.scan(db.codes))
     assert sum(flat[0]) == len(want)
 
-    sc2 = ConvScanner(tables, k=0, use_pallas=True)
-    sc2.pallas_interpret = True
-    got = sorted(sharded_pallas_scan_hits_2d(
-        sc2, db.codes, mesh, interpret=True))
+    sc2 = ConvScanner(tables, k=0, use_fused=True)
+    sc2.force_device = True
+    got = sorted(sharded_scan_hits_2d(
+        sc2, db.codes, mesh))
     assert got == want
 
 
 def test_primer_match_cli_mesh_parity_huge_p_k1(tmp_path, syn_fasta):
-    """Round 5 (VERDICT r4 item 4a): a > 64-pattern -k 1 run — outside
-    the slots pipeline's envelope — must still be byte-identical on
-    1 vs N devices (the engine's seed scan routes through the sharded
-    plain pipeline / host census under the mesh instead of declining)."""
-    from sequence_alignment_tools_tpu.io.database import SeqDB
+    """Round 5 (VERDICT r4 item 4a): a > 64-pattern -k 1 run must be
+    byte-identical on 1 vs N devices (the engine's seed scan routes
+    through the sharded gated pipeline under the mesh)."""
+    from sequence_alignment_tools.io.database import SeqDB
 
     db = SeqDB.from_fasta(syn_fasta)
     text = db.decode(0, min(20_000, len(db.codes)))
@@ -285,13 +286,13 @@ def test_pcr_pairs_stream_mesh_parity_overlapped(tmp_path, monkeypatch):
     single-chip stream, with the overlapped sharded transport proven via
     the route protocol (the inner exact engine must announce the sharded
     pipelined scan STREAM, not a per-run path)."""
-    from sequence_alignment_tools_tpu.apps.pcr_match import (
+    from sequence_alignment_tools.apps.pcr_match import (
         build_pair_pattern_set,
     )
-    from sequence_alignment_tools_tpu.io.database import SeqDB
-    from sequence_alignment_tools_tpu.models.pcr_match import PcrMatchModel
-    from sequence_alignment_tools_tpu.parallel.shard import make_mesh
-    from sequence_alignment_tools_tpu.utils.iupac import reverse_comp
+    from sequence_alignment_tools.io.database import SeqDB
+    from sequence_alignment_tools.models.pcr_match import PcrMatchModel
+    from sequence_alignment_tools.parallel.shard import make_mesh
+    from sequence_alignment_tools.utils.iupac import reverse_comp
 
     import jax
 
@@ -316,7 +317,7 @@ def test_pcr_pairs_stream_mesh_parity_overlapped(tmp_path, monkeypatch):
         m = PcrMatchModel(db, ps, k=0, maxdist=2000, rev_comp=True)
         m.inner.mesh = mesh
         m.inner.use_host = False
-        m.inner.pallas_interpret = True
+        m.inner.force_device = True
         return m
 
     def key(run):
@@ -346,13 +347,13 @@ def test_peptide_6frame_stream_mesh_parity_overlapped(tmp_path,
 
     import jax
 
-    from sequence_alignment_tools_tpu.io.database import SeqDB
-    from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-    from sequence_alignment_tools_tpu.io.translate import translate_db
-    from sequence_alignment_tools_tpu.models.primer_match import (
+    from sequence_alignment_tools.io.database import SeqDB
+    from sequence_alignment_tools.io.patterns import build_pattern_set
+    from sequence_alignment_tools.io.translate import translate_db
+    from sequence_alignment_tools.models.primer_match import (
         PrimerMatchModel,
     )
-    from sequence_alignment_tools_tpu.parallel.shard import make_mesh
+    from sequence_alignment_tools.parallel.shard import make_mesh
 
     path = str(tmp_path / "pep.fasta")
     make_synthetic_fasta(path, n_entries=2, total=48_000, seed=11)
@@ -372,7 +373,7 @@ def test_peptide_6frame_stream_mesh_parity_overlapped(tmp_path,
     def model(mesh):
         m = PrimerMatchModel(tdb.aa_db, ps, k=0, mesh=mesh)
         m.use_host = False
-        m.pallas_interpret = True
+        m.force_device = True
         return m
 
     m1 = model(None)

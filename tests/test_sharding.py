@@ -1,21 +1,24 @@
 """Multi-chip sharding: 1 chip ≡ N chips (virtual 8-device CPU mesh)."""
 
+import os
 import numpy as np
 import jax
 
-from sequence_alignment_tools_tpu.io.database import SeqDB
-from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-from sequence_alignment_tools_tpu.ops.tables import build_tables, conv_weights
-from sequence_alignment_tools_tpu.parallel.shard import (
+from sequence_alignment_tools.io.database import SeqDB
+from sequence_alignment_tools.io.patterns import build_pattern_set
+from sequence_alignment_tools.ops.tables import build_tables, conv_weights
+from sequence_alignment_tools.parallel.shard import (
     make_mesh,
     shard_codes,
     sharded_scan_counts,
 )
 
+PAT = os.path.join(os.path.dirname(__file__), "data", "pat.txt")
+
 
 def test_shard_count_invariance(syn_fasta):
     db = SeqDB.from_fasta(syn_fasta)
-    pats = [l.strip() for l in open("/root/reference/db/pat.txt") if l.strip()]
+    pats = [l.strip() for l in open(PAT) if l.strip()]
     ps = build_pattern_set(pats, rev_comp=True)
     tables = build_tables(ps, db, wc=False, textn=False)
     w = conv_weights(tables, 0, poison_eos=False)
@@ -56,7 +59,7 @@ def test_shard_count_invariance(syn_fasta):
 def test_shard_boundary_straddle():
     """A pattern planted exactly across a shard boundary is found once."""
     import jax.numpy as jnp
-    from sequence_alignment_tools_tpu.io.database import SeqDB
+    from sequence_alignment_tools.io.database import SeqDB
 
     pat = "ACGTTGCAACGT"
     n = 8 * 1000
@@ -88,15 +91,15 @@ def test_shard_boundary_straddle():
 
 
 def test_sharded_hit_gather(syn_fasta):
-    """sharded_scan_hits: the all_gathered global hit list equals the
+    """sharded_block_hits: the all_gathered global hit list equals the
     single-device hit set, replicated identically on every chip, in
     position-major order (shards own disjoint start ranges)."""
     import jax.numpy as jnp
 
-    from sequence_alignment_tools_tpu.parallel.shard import sharded_scan_hits
+    from sequence_alignment_tools.parallel.shard import sharded_block_hits
 
     db = SeqDB.from_fasta(syn_fasta)
-    pats = [l.strip() for l in open("/root/reference/db/pat.txt")
+    pats = [l.strip() for l in open(PAT)
             if l.strip()]
     ps = build_pattern_set(pats, rev_comp=True)
     tables = build_tables(ps, db, wc=False, textn=False)
@@ -121,7 +124,7 @@ def test_sharded_hit_gather(syn_fasta):
 
     mesh = make_mesh(jax.devices()[:8])
     shards, _ = shard_codes(codes, mesh, Lmax - 1, tables.eos_code)
-    counts, starts, pids = sharded_scan_hits(
+    counts, starts, pids = sharded_block_hits(
         shards, jnp.asarray(w), jnp.asarray(thresholds),
         jnp.asarray(tables.lengths), tables.alpha, mesh,
     )
@@ -135,18 +138,18 @@ def test_sharded_hit_gather(syn_fasta):
 
 
 def test_sharded_pallas_pipeline(syn_fasta):
-    """sharded_pallas_scan_hits: the fused Mosaic pipeline run per shard
-    (interpret mode on the virtual mesh) reproduces the single-device
+    """sharded_scan_hits: the fused pipeline run per shard (on the
+    virtual CPU mesh) reproduces the single-device
     scanner's full (end, pid, mism) stream — including hits whose windows
     straddle shard boundaries (covered by the static halo) and the
     cross-shard overflow-retry path (tiny forced caps)."""
-    from sequence_alignment_tools_tpu.ops.conv_scan import ConvScanner
-    from sequence_alignment_tools_tpu.parallel.shard import (
-        sharded_pallas_scan_hits,
+    from sequence_alignment_tools.ops.conv_scan import ConvScanner
+    from sequence_alignment_tools.parallel.shard import (
+        sharded_scan_hits,
     )
 
     db = SeqDB.from_fasta(syn_fasta)
-    pats = [l.strip() for l in open("/root/reference/db/pat.txt")
+    pats = [l.strip() for l in open(PAT)
             if l.strip()]
     # add patterns that straddle the 8-way shard boundaries: substrings
     # of the text crossing each shard edge
@@ -161,8 +164,8 @@ def test_sharded_pallas_pipeline(syn_fasta):
     ps = build_pattern_set(pats + extra, rev_comp=True)
     tables = build_tables(ps, db, wc=False, textn=False)
 
-    sc = ConvScanner(tables, k=0, use_pallas=True)
-    sc.pallas_interpret = True
+    sc = ConvScanner(tables, k=0, use_fused=True)
+    sc.force_device = True
     want = sorted(sc.scan(db.codes))
     assert want  # non-degenerate
     assert any(e - tables.lengths[p] < i * shard_len <= e
@@ -170,34 +173,34 @@ def test_sharded_pallas_pipeline(syn_fasta):
         "no boundary-straddling hit planted"
 
     mesh = make_mesh(jax.devices()[:8])
-    got = sorted(sharded_pallas_scan_hits(
-        sc, db.codes, mesh, interpret=True))
+    got = sorted(sharded_scan_hits(
+        sc, db.codes, mesh))
     assert got == want
 
     # cross-shard overflow retry: force caps below the true counts
-    sc2 = ConvScanner(tables, k=0, use_pallas=True)
-    sc2.pallas_interpret = True
+    sc2 = ConvScanner(tables, k=0, use_fused=True)
+    sc2.force_device = True
     sc2._cap_mb = 2
     sc2._hit_cap = 2
-    got2 = sorted(sharded_pallas_scan_hits(
-        sc2, db.codes, mesh, interpret=True))
+    got2 = sorted(sharded_scan_hits(
+        sc2, db.codes, mesh))
     assert got2 == want
     assert sc2._cap_mb > 2 or sc2._hit_cap > 2
 
 
 def test_sharded_gated_slots_matches_single_device():
-    """The k>0 all-Pallas gated pipeline under a multi-device mesh
-    (parallel.shard.sharded_gated_slots): engine output identical to the
-    single-device slots path, with planted matches straddling every
-    shard boundary."""
+    """The k>0 fused gated pipeline under a multi-device mesh
+    (parallel.shard.sharded_scan_gated): engine output identical to the
+    single-device path, with planted matches straddling every shard
+    boundary."""
     import numpy as np
 
-    from sequence_alignment_tools_tpu.io.database import SeqDB
-    from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-    from sequence_alignment_tools_tpu.models.primer_match import (
+    from sequence_alignment_tools.io.database import SeqDB
+    from sequence_alignment_tools.io.patterns import build_pattern_set
+    from sequence_alignment_tools.models.primer_match import (
         PrimerMatchModel,
     )
-    from sequence_alignment_tools_tpu.parallel.shard import make_mesh
+    from sequence_alignment_tools.parallel.shard import make_mesh
 
     rng = np.random.default_rng(23)
     n = 1 << 17
@@ -217,7 +220,7 @@ def test_sharded_gated_slots_matches_single_device():
 
     m1 = PrimerMatchModel(db, ps, k=1)
     m1.use_host = False
-    m1._halves_ctx()[1].pallas_interpret = True
+    m1._halves_ctx()[1].force_device = True
     want = sorted(m1.engine_hits())
     assert len(want) >= 10  # boundary plants + originals
 
@@ -226,7 +229,7 @@ def test_sharded_gated_slots_matches_single_device():
     m8 = PrimerMatchModel(db, ps, k=1)
     m8.use_host = False
     sc = m8._halves_ctx()[1]
-    sc.pallas_interpret = True
+    sc.force_device = True
     sc.mesh = make_mesh(jax.devices()[:8])
     got = sorted(m8.engine_hits())
     assert got == want
@@ -234,19 +237,19 @@ def test_sharded_gated_slots_matches_single_device():
 
 def test_sharded_gated_stream_matches_single(monkeypatch):
     """Round 5 (VERDICT r4 item 4b): the sharded gated STREAM — the
-    multi-chip serving posture overlaps consecutive engine runs through
-    parallel.shard.sharded_gated_stream (dispatch i+1 before fetch i,
-    grouped background fetches) with per-run output identical to the
-    single-chip engine, and the route announcement proves the streamed
-    path (not the per-run fallback) served the runs."""
+    multi-device serving posture runs consecutive engine runs through
+    ConvScanner.scan_gated_stream over the mesh with per-run output
+    identical to the single-device engine, and the route announcement
+    proves the streamed path (not the per-run fallback) served the
+    runs."""
     import numpy as np
 
-    from sequence_alignment_tools_tpu.io.database import SeqDB
-    from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-    from sequence_alignment_tools_tpu.models.primer_match import (
+    from sequence_alignment_tools.io.database import SeqDB
+    from sequence_alignment_tools.io.patterns import build_pattern_set
+    from sequence_alignment_tools.models.primer_match import (
         PrimerMatchModel,
     )
-    from sequence_alignment_tools_tpu.parallel.shard import make_mesh
+    from sequence_alignment_tools.parallel.shard import make_mesh
 
     rng = np.random.default_rng(29)
     n = 1 << 16
@@ -259,7 +262,7 @@ def test_sharded_gated_stream_matches_single(monkeypatch):
 
     m1 = PrimerMatchModel(db, ps, k=1)
     m1.use_host = False
-    m1._halves_ctx()[1].pallas_interpret = True
+    m1._halves_ctx()[1].force_device = True
     want = sorted(m1.engine_hits())
     assert want
 
@@ -269,28 +272,27 @@ def test_sharded_gated_stream_matches_single(monkeypatch):
     m8 = PrimerMatchModel(db, ps, k=1)
     m8.use_host = False
     sc = m8._halves_ctx()[1]
-    sc.pallas_interpret = True
-    sc.use_pallas = True
+    sc.force_device = True
+    sc.use_fused = True
     sc.mesh = make_mesh(jax.devices()[:8])
     outs = [sorted(o) for o in m8.engine_hits_stream(3)]
     assert outs == [want] * 3
-    assert any("sharded gated slots STREAM" in r
+    assert any("sharded gated STREAM" in r
                for r in (sc._routes_done or ()))
 
 
 def test_mesh_k1_beyond_slots_envelope():
     """Round 5 (VERDICT r4 item 4a): a P > 64-pattern k=1 config under a
-    multi-device mesh — slots-ineligible — must produce the identical
-    engine output via the sharded plain seed pipeline / host census
-    instead of declining to a dead end."""
+    multi-device mesh must produce the identical engine output through
+    the sharded gated pipeline."""
     import numpy as np
 
-    from sequence_alignment_tools_tpu.io.database import SeqDB
-    from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-    from sequence_alignment_tools_tpu.models.primer_match import (
+    from sequence_alignment_tools.io.database import SeqDB
+    from sequence_alignment_tools.io.patterns import build_pattern_set
+    from sequence_alignment_tools.models.primer_match import (
         PrimerMatchModel,
     )
-    from sequence_alignment_tools_tpu.parallel.shard import make_mesh
+    from sequence_alignment_tools.parallel.shard import make_mesh
 
     rng = np.random.default_rng(31)
     n = 1 << 16
@@ -303,7 +305,7 @@ def test_mesh_k1_beyond_slots_envelope():
 
     m1 = PrimerMatchModel(db, ps, k=1)
     m1.use_host = False
-    m1._halves_ctx()[1].pallas_interpret = True
+    m1._halves_ctx()[1].force_device = True
     want = sorted(m1.engine_hits())
     assert want
 
@@ -312,11 +314,10 @@ def test_mesh_k1_beyond_slots_envelope():
     m8 = PrimerMatchModel(db, ps, k=1)
     m8.use_host = False
     sc = m8._halves_ctx()[1]
-    sc.pallas_interpret = True
-    sc.use_pallas = True
+    sc.force_device = True
+    sc.use_fused = True
     sc.mesh = make_mesh(jax.devices()[:8])
     assert sorted(m8.engine_hits()) == want
-    # and the streamed serving entry must work there too (per-run
-    # census-backed fallback, not an exception)
+    # and the streamed serving entry must work there too
     outs = [sorted(o) for o in m8.engine_hits_stream(2)]
     assert outs == [want] * 2

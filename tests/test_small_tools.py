@@ -8,10 +8,10 @@ import subprocess
 
 import pytest
 
-from sequence_alignment_tools_tpu.apps.exact_match import (
+from sequence_alignment_tools.apps.exact_match import (
     parse_args as em_args, run as em_run,
 )
-from sequence_alignment_tools_tpu.apps.inexact_match import (
+from sequence_alignment_tools.apps.inexact_match import (
     parse_args as im_args, run as im_run,
 )
 
@@ -100,7 +100,7 @@ def test_compress_seq_cli(tmp_path, oracle):
     must report staleness correctly."""
     import shutil
 
-    from sequence_alignment_tools_tpu.apps.compress_seq import main as cs_main
+    from sequence_alignment_tools.apps.compress_seq import main as cs_main
 
     src = tmp_path / "x.fasta"
     rng = random.Random(3)
@@ -169,7 +169,7 @@ KA_CONFIGS = [["-k", "6"], ["-k", "6", "-n"], ["-k", "6", "-b"]]
 
 @pytest.mark.parametrize("cfg", KA_CONFIGS, ids=lambda c: " ".join(c))
 def test_kmer_annotate_parity(oracle, ka_env, cfg):
-    from sequence_alignment_tools_tpu.apps.kmer_annotate import (
+    from sequence_alignment_tools.apps.kmer_annotate import (
         parse_args as ka_args, run as ka_run,
     )
 
@@ -202,18 +202,18 @@ def test_suffix_tree_engine(tmp_path, oracle):
     bit-rotted and reports spurious hits at every position.)"""
     import random
 
-    from sequence_alignment_tools_tpu.apps.compress_seq import main as cs
-    from sequence_alignment_tools_tpu.apps.primer_match import (
+    from sequence_alignment_tools.apps.compress_seq import main as cs
+    from sequence_alignment_tools.apps.primer_match import (
         parse_args as pm_args, run as pm_run,
     )
-    from sequence_alignment_tools_tpu.io.compress import (
+    from sequence_alignment_tools.io.compress import (
         build_suffix_array, read_suffix_array,
     )
-    from sequence_alignment_tools_tpu.io.compress import load_db
-    from sequence_alignment_tools_tpu.models.primer_match import (
+    from sequence_alignment_tools.io.compress import load_db
+    from sequence_alignment_tools.models.primer_match import (
         PrimerMatchModel, select_engine,
     )
-    from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
+    from sequence_alignment_tools.io.patterns import build_pattern_set
 
     rng = random.Random(3)
     pats = ["CATCCTGCATCA", "TGGTAGGAGTTG"]

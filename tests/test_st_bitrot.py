@@ -70,7 +70,7 @@ def test_our_suftree_engine_is_correct(oracle, st_corpus, tmp_path):
     """Our -N 1 with OUR .st present (SA-IS .sqn.st written by our
     compress_seq -t) matches the reference's CORRECT (.st-less keyword
     tree) output byte for byte."""
-    from sequence_alignment_tools_tpu.apps import compress_seq, primer_match
+    from sequence_alignment_tools.apps import compress_seq, primer_match
 
     # correct reference output: keyword tree, no .st
     if os.path.exists(st_corpus + ".sqn.st"):

@@ -13,11 +13,11 @@ import sys
 import numpy as np
 import pytest
 
-from sequence_alignment_tools_tpu.io.compress import load_db, write_idb
-from sequence_alignment_tools_tpu.io.database import SeqDB
-from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-from sequence_alignment_tools_tpu.ops.conv_scan import ConvScanner
-from sequence_alignment_tools_tpu.ops.tables import build_tables
+from sequence_alignment_tools.io.compress import load_db, write_idb
+from sequence_alignment_tools.io.database import SeqDB
+from sequence_alignment_tools.io.patterns import build_pattern_set
+from sequence_alignment_tools.ops.conv_scan import ConvScanner
+from sequence_alignment_tools.ops.tables import build_tables
 
 PAT = "ACGTTGCAACGTAGG"
 
@@ -91,7 +91,7 @@ def test_streamed_scan_composes_with_mesh(tmp_path):
     1 == N byte parity on the 8-device CPU mesh, straddles included."""
     import jax
 
-    from sequence_alignment_tools_tpu.parallel.shard import make_mesh
+    from sequence_alignment_tools.parallel.shard import make_mesh
 
     base = str(tmp_path / "mesh.fa")
     B = 1 << 16
@@ -113,8 +113,8 @@ def test_streamed_scan_composes_with_mesh(tmp_path):
     want = sorted(resident.scan(np.asarray(db.codes)))
     assert len(want) >= len(planted)
 
-    meshed = ConvScanner(tables, k=0, use_pallas=True)
-    meshed.pallas_interpret = True
+    meshed = ConvScanner(tables, k=0, use_fused=True)
+    meshed.force_device = True
     meshed.mesh = make_mesh(jax.devices()[:8])
     meshed._STREAM_BLOCK = B
     assert meshed._stream_whole(db.codes) and meshed._sharded_capable()
@@ -126,10 +126,10 @@ _RSS_SCRIPT = r"""
 import os, resource, sys
 import numpy as np
 os.environ["SAT_STREAM_DB"] = "1"
-from sequence_alignment_tools_tpu.io.compress import load_db
-from sequence_alignment_tools_tpu.io.patterns import build_pattern_set
-from sequence_alignment_tools_tpu.ops.conv_scan import ConvScanner
-from sequence_alignment_tools_tpu.ops.tables import build_tables
+from sequence_alignment_tools.io.compress import load_db
+from sequence_alignment_tools.io.patterns import build_pattern_set
+from sequence_alignment_tools.ops.conv_scan import ConvScanner
+from sequence_alignment_tools.ops.tables import build_tables
 
 base, pat = sys.argv[1], sys.argv[2]
 db = load_db(base)

@@ -19,9 +19,9 @@ import subprocess
 
 import pytest
 
-from sequence_alignment_tools_tpu.apps.primer_match import parse_args, run
+from sequence_alignment_tools.apps.primer_match import parse_args, run
 
-PAT = "/root/reference/db/pat.txt"
+PAT = os.path.join(os.path.dirname(__file__), "data", "pat.txt")
 TS = re.compile(r"^\[.{24}\] ")
 PROGRESS = re.compile(r"^Progress: *\d+\.\d%$")
 
@@ -165,7 +165,7 @@ PCR_CONFIGS = [
 
 @pytest.mark.parametrize("cfg", PCR_CONFIGS, ids=lambda c: " ".join(c))
 def test_pcr_verbose_stderr_parity(oracle, pcr_corpus, cfg):
-    from sequence_alignment_tools_tpu.apps.pcr_match import (
+    from sequence_alignment_tools.apps.pcr_match import (
         parse_args as pcr_parse,
         run as pcr_run,
     )
@@ -186,7 +186,7 @@ def test_pcr_verbose_stderr_parity(oracle, pcr_corpus, cfg):
 
 
 def test_progress_reporter_throttles():
-    from sequence_alignment_tools_tpu.utils.log import ProgressReporter
+    from sequence_alignment_tools.utils.log import ProgressReporter
 
     buf = io.StringIO()
     rep = ProgressReporter(0.25, stream=buf)

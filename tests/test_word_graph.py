@@ -5,8 +5,8 @@ import random
 import numpy as np
 import pytest
 
-from sequence_alignment_tools_tpu.models.word_graph import WordGraph
-from sequence_alignment_tools_tpu.ops.netflo import min_cost_flow
+from sequence_alignment_tools.models.word_graph import WordGraph
+from sequence_alignment_tools.ops.netflo import min_cost_flow
 
 
 def _codes(s, alpha="ACGT$"):
@@ -106,8 +106,8 @@ def test_solid_assembly_reconstruction(tmp_path):
     word_graph.cc:1207.)"""
     import random
 
-    from sequence_alignment_tools_tpu.apps.solid_assembly import main as sa
-    from sequence_alignment_tools_tpu.apps.walk_graph import build_main
+    from sequence_alignment_tools.apps.solid_assembly import main as sa
+    from sequence_alignment_tools.apps.walk_graph import build_main
 
     rng = random.Random(7)
 
@@ -130,7 +130,7 @@ def test_solid_assembly_reconstruction(tmp_path):
 
 def test_solid_assembly_ee_format(tmp_path):
     """The E/e tab edge-list (WordGraph builder output) is accepted."""
-    from sequence_alignment_tools_tpu.apps.solid_assembly import read_graph
+    from sequence_alignment_tools.apps.solid_assembly import read_graph
 
     p = tmp_path / "g.ee"
     p.write_text("E\t1\t2\t10\t11\t1\ne\t2\t3\t11\t12\nE\t2\t3\t11\t12\t2\n.\n")

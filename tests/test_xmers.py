@@ -15,7 +15,7 @@ import subprocess
 
 import pytest
 
-from sequence_alignment_tools_tpu.apps.xmers import parse_args, run
+from sequence_alignment_tools.apps.xmers import parse_args, run
 
 
 def _oracle_xmers(oracle, args):
@@ -177,7 +177,7 @@ def test_merstream_parity(oracle, corpus):
     ms = os.path.join(oracle, "merstream")
     if not os.access(ms, os.X_OK):
         pytest.skip("merstream oracle unavailable")
-    from sequence_alignment_tools_tpu.apps.xmers import merstream_main
+    from sequence_alignment_tools.apps.xmers import merstream_main
 
     for args in (["-i", tiny, "-m", "4", "-r", "AC.T"],
                  ["-i", big, "-m", "4", "-r", "AC.T", "-R", "-u", "9"]):
@@ -185,7 +185,7 @@ def test_merstream_parity(oracle, corpus):
                              capture_output=True)
         assert ref.returncode == 0
         buf = io.StringIO()
-        from sequence_alignment_tools_tpu.apps.xmers import parse_args, run
+        from sequence_alignment_tools.apps.xmers import parse_args, run
         opts = parse_args(args)
         if opts["u"] == -1:
             opts["u"] = 0
